@@ -1,0 +1,356 @@
+"""Blocked symbolic state-machine decoder (port of
+qoi_tpu/models/decode_v3.py, the `_decode_device` main path).
+
+The reference decoder (qoi.h:488-590) is a sequential recurrence on the
+state S = (px, index[64]). Once each chunk's WRITTEN table slot w is
+known, every chunk is an affine-selection transform of S, and such
+transforms compose associatively. Written slots start from an affine
+hash scan (`_initial_w`) and a certified fixpoint corrects them:
+
+  pass 1  per-block symbolic 65-entry maps, one lane per block
+          (kernels/block_maps.py: the CUDA kernel on the card)
+  pass 2  compose the block maps, apply them to the seed state
+  pass 3  numeric px after every byte from pass 1's per-position
+          symbolic px entries
+  check   w == hash(px) everywhere certifies the decode; otherwise
+          the anchored rebuild gives the next w, up to 12 rounds, and
+          a stalled mismatch count bails to the native decoder
+  expand  per-byte px -> pixel plane (kernels/expand.py)
+
+u32 values are int64 in [0, 2**32) (see _bits); kernel planes are int32
+bit patterns. The fixpoint loop is a Python loop that reads the mismatch
+count to the host once per round. Not ported yet: the surgical second
+round (same output, fewer lanes), the numeric re-scan pass 3
+(apply="scan"), the dense expand, entry-state chaining and vmapped
+batches.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from qoi_tpu import format as fmt
+
+from .._bits import to_i32
+from ..kernels.block_maps import (_CLS_ADD, _CLS_ID, _CLS_INDEX, _CLS_RGB,
+                                  _CLS_RGBA, block_maps)
+from ..kernels.expand import expand_px
+from ..ops import fsm
+from ..ops.scans import assoc_scan
+from . import buckets
+
+_SEED_HASH = fmt.hash_rgba(*fmt.SEED_PIXEL)
+_ABS = 65  # per-channel root symbol: absolute value (no entry dependence)
+_MAX_ROUNDS = 12
+
+#: cap on the scan length B (positions per block), as in the JAX package
+_SCAN_B_MAX = 8192
+
+
+def _hash_packed(px32: torch.Tensor) -> torch.Tensor:
+    """(3r + 5g + 7b + 11a) & 63 from packed u32 (reference qoi.h:92)."""
+    m = fmt.HASH_MULTIPLIERS
+    return (m[0] * (px32 & 0xFF) + m[1] * ((px32 >> 8) & 0xFF)
+            + m[2] * ((px32 >> 16) & 0xFF) + m[3] * ((px32 >> 24) & 0xFF)) & 63
+
+
+def _shift_up(x: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.cat([x[k:], x.new_zeros(k)])
+
+
+def _fields(data: torch.Tensor, chunks_len):
+    """Per-byte chunk fields. data: (M,) uint8. Returns (starts, cls, r6,
+    d32, lit32, npix), (M,) each (bool, then int64)."""
+    starts = fsm.chunk_starts(data, chunks_len)
+    d1 = data.to(torch.int64)
+    b2, b3, b4, b5 = (_shift_up(d1, k) for k in (1, 2, 3, 4))
+
+    is_rgb = (d1 == fmt.OP_RGB) & starts
+    is_rgba = (d1 == fmt.OP_RGBA) & starts
+    two = d1 & fmt.MASK_2
+    other = ~is_rgb & ~is_rgba & starts
+    is_index = other & (two == fmt.OP_INDEX)
+    is_diff = other & (two == fmt.OP_DIFF)
+    is_luma = other & (two == fmt.OP_LUMA)
+    is_run = other & (two == fmt.OP_RUN)
+
+    cls = torch.where(is_rgb, _CLS_RGB,
+          torch.where(is_rgba, _CLS_RGBA,
+          torch.where(is_index, _CLS_INDEX,
+          torch.where(is_diff | is_luma | is_run, _CLS_ADD, _CLS_ID))))
+    r6 = torch.where(is_index, d1 & 63, 0)
+    npix = torch.where(is_run, (d1 & 0x3F) + 1, starts.to(torch.int64))
+
+    # mod-256 deltas as the decoder applies them (reference qoi.h:562-572)
+    dr = torch.where(is_diff, ((d1 >> 4) & 3) - 2, 0)
+    dg2 = torch.where(is_diff, ((d1 >> 2) & 3) - 2, 0)
+    db = torch.where(is_diff, (d1 & 3) - 2, 0)
+    vg = (d1 & 0x3F) - 32
+    lr = vg - 8 + ((b2 >> 4) & 0x0F)
+    lb = vg - 8 + (b2 & 0x0F)
+    dr = torch.where(is_luma, lr, dr) & 0xFF
+    dg = torch.where(is_luma, vg, dg2) & 0xFF
+    db = torch.where(is_luma, lb, db) & 0xFF
+    d32 = dr | dg << 8 | db << 16
+    lit32 = b2 | b3 << 8 | b4 << 16 | b5 << 24
+    return starts, cls, r6, d32, lit32, npix
+
+
+def _initial_comb(p1, p2):
+    """Compose two packed affine (alpha, hash) maps, p2 after p1."""
+    ra1, g1 = p1 & 1, (p1 >> 1) & 1
+    t1, e1, va1 = (p1 >> 2) & 63, (p1 >> 8) & 63, (p1 >> 14) & 0xFF
+    ra2, g2 = p2 & 1, (p2 >> 1) & 1
+    t2, e2, va2 = (p2 >> 2) & 63, (p2 >> 8) & 63, (p2 >> 14) & 0xFF
+    g = g1 & g2
+    t = (g2 * t1 + (1 - ra1) * t2) & 63
+    e = (g2 * e1 + e2 + ra1 * t2 * va1) & 63
+    va = torch.where(ra2 != 0, va2, va1)
+    return (ra1 | ra2) | (g << 1) | (t << 2) | (e << 8) | (va << 14)
+
+
+def _initial_w(cls, r6, d32, lit32, npix):
+    """Optimistic per-byte written-slot estimate as ONE affine scan over
+    the coupled (alpha, hash) state, co-scanned with the pixel-offset
+    cumsum:
+
+        a' = ra ? va : a                 (an RGBA literal sets alpha)
+        h' = g*h + t*a + e   (mod 64)    (g, t, e per op class)
+
+    with the five coefficients packed as [ra:1 | g:1 | t:6 | e:6 | va:8].
+    Exact unless an INDEX changed alpha between RGBA and RGB chunks (the
+    fixpoint corrects that). Returns (w, pix_off), both (M,) int64."""
+    m3, m5, m7, m11 = fmt.HASH_MULTIPLIERS
+    is_rgba = cls == _CLS_RGBA
+    is_rgb = cls == _CLS_RGB
+    b2, b3 = lit32 & 0xFF, (lit32 >> 8) & 0xFF
+    b4, b5 = (lit32 >> 16) & 0xFF, (lit32 >> 24) & 0xFF
+    dh = (m3 * (d32 & 0xFF) + m5 * ((d32 >> 8) & 0xFF)
+          + m7 * ((d32 >> 16) & 0xFF)) & 63
+    habs = (m3 * b2 + m5 * b3 + m7 * b4 + m11 * b5) & 63
+    c_rgb = (m3 * b2 + m5 * b3 + m7 * b4) & 63
+    is_reset = is_rgb | is_rgba | (cls == _CLS_INDEX)
+    g = (~is_reset).to(torch.int64)
+    t = torch.where(is_rgb, m11 & 63, 0)
+    e = torch.where(is_rgba, habs,
+        torch.where(is_rgb, c_rgb,
+        torch.where(cls == _CLS_INDEX, r6,
+        torch.where(cls == _CLS_ADD, dh, 0))))
+    packed = (is_rgba.to(torch.int64) | (g << 1) | (t << 2) | (e << 8)
+              | (torch.where(is_rgba, b5, 0) << 14))
+
+    ps, inc = assoc_scan(
+        lambda a, b: (_initial_comb(a[0], b[0]), a[1] + b[1]),
+        (packed, npix))
+    gs, ts_, es = (ps >> 1) & 1, (ps >> 2) & 63, (ps >> 8) & 63
+    w = (gs * _SEED_HASH + ts_ * fmt.SEED_PIXEL[3] + es) & 63
+    return w, inc - npix
+
+
+def _anch_leaf(cls, r6, d32, px32):
+    """Packed (g, e) affine leaf of the anchored-w recurrence."""
+    m3, m5, m7, _ = fmt.HASH_MULTIPLIERS
+    dh = (m3 * (d32 & 0xFF) + m5 * ((d32 >> 8) & 0xFF)
+          + m7 * ((d32 >> 16) & 0xFF)) & 63
+    is_reset = (cls == _CLS_RGB) | (cls == _CLS_RGBA) | (cls == _CLS_INDEX)
+    g = (~is_reset).to(torch.int64)
+    e = torch.where(cls == _CLS_INDEX, r6,
+        torch.where(is_reset, _hash_packed(px32),
+        torch.where(cls == _CLS_ADD, dh, 0)))
+    return g | (e << 1)
+
+
+def _anch_comb(p1, p2):
+    g1, e1 = p1 & 1, p1 >> 1
+    g2, e2 = p2 & 1, p2 >> 1
+    return (g1 & g2) | (((g2 * e1 + e2) & 63) << 1)
+
+
+def _anchored_w(cls, r6, d32, px32):
+    """Next-round written-slot estimate from a resolve's px, re-anchored
+    at every reset chunk: INDEX r writes slot r (the table invariant),
+    RGB/RGBA write hash(px), ADD/RUN add hash(delta) mod 64. Errors
+    remain only at RGB chunks whose resolved alpha was poisoned."""
+    ps = assoc_scan(_anch_comb, _anch_leaf(cls, r6, d32, px32))
+    return ((ps & 1) * _SEED_HASH + (ps >> 1)) & 63
+
+
+def _compose_entry_states(root: torch.Tensor, val: torch.Tensor
+                          ) -> torch.Tensor:
+    """Pass 2: inclusive compose of the (65, nb) block maps (int32 bit
+    patterns) along the blocks, then application to the seed state ->
+    the packed numeric 65-entry state at every block ENTRY, (65, nb)
+    int64 u32. The compose looks roots up over the 65-entry axis with
+    `gather`; the scan over blocks is `assoc_scan`."""
+    shifts = torch.tensor([0, 8, 16, 24], device=root.device)[:, None, None]
+    rc = (root.to(torch.int64)[None] >> shifts) & 0xFF   # (4, 65, nb)
+    vc = (val.to(torch.int64)[None] >> shifts) & 0xFF
+
+    def comb(a, b):
+        (ar, av), (br, bv) = a, b
+        idx = br.clamp(max=_ABS - 1)
+        is_abs = br == _ABS
+        return (torch.where(is_abs, _ABS, ar.gather(1, idx)),
+                torch.where(is_abs, bv, (av.gather(1, idx) + bv) & 0xFF))
+
+    rs, vs = assoc_scan(comb, (rc, vc))
+    init = torch.zeros((4, 65), dtype=torch.int64, device=root.device)
+    init[:, 0] = torch.tensor(fmt.SEED_PIXEL, device=root.device)
+    nb = root.shape[1]
+    looked = init[:, :, None].expand(4, 65, nb).gather(
+        1, rs.clamp(max=_ABS - 1))
+    applied = torch.where(rs == _ABS, vs, (vs + looked) & 0xFF)
+    entry = torch.cat([init[:, :, None], applied[:, :, :-1]], dim=2)
+    return entry[0] | entry[1] << 8 | entry[2] << 16 | entry[3] << 24
+
+
+def _apply_symbolic(proot: torch.Tensor, pval: torch.Tensor,
+                    entry: torch.Tensor) -> torch.Tensor:
+    """Pass 3: numeric px after every position (b, nb) from pass 1's
+    per-position symbolic px entries (int32) and the per-block entry
+    states (65, nb) u32. Per channel: px_c = pval_c if proot_c is
+    absolute, else (entry[proot_c]_c + pval_c) mod 256 -- one gather over
+    the 65-entry axis per channel."""
+    proot, pval = proot.to(torch.int64), pval.to(torch.int64)
+    px = torch.zeros_like(pval)
+    for sh in (0, 8, 16, 24):
+        r = (proot >> sh) & 0xFF
+        v = (pval >> sh) & 0xFF
+        looked = ((entry >> sh) & 0xFF).gather(0, r.clamp(max=_ABS - 1))
+        px |= torch.where(r == _ABS, v, (looked + v) & 0xFF) << sh
+    return px
+
+
+def _scan_block_len(m: int) -> int:
+    """Scan length B (positions per block): lanes nb = m / B stay wide
+    while the sequential steps stay bounded."""
+    b = 16
+    while b < _SCAN_B_MAX and b * 64 <= m:
+        b <<= 1
+    return b
+
+
+def _pos_major(x: torch.Tensor, m: int, b: int) -> torch.Tensor:
+    """(M,) -> (B, nb): position i of block k at [i, k]."""
+    return x.reshape(m // b, b).T.contiguous()
+
+
+def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int) -> torch.Tensor:
+    """One full symbolic resolve given written slots w, from the
+    loop-invariant position-major int32 planes (base_p = cls | r6 << 9,
+    d32_p, lit32_p). Returns the (M,) u32 px after every byte."""
+    meta_p = base_p | (_pos_major(w, m, b) << 3).to(torch.int32)
+    root, val, proot, pval = block_maps(meta_p, d32_p, lit32_p)
+    entry = _compose_entry_states(root, val)
+    return _apply_symbolic(proot, pval, entry).T.reshape(m)
+
+
+def _decode_core(data: torch.Tensor, chunks_len: int):
+    """Full chunk-level decode to per-byte px values + bookkeeping.
+    data: (M,) uint8 with M a bucket size. Returns (px32 (M,) int64 u32,
+    starts, npix, pix_off, converged (bool), rounds (int))."""
+    m = data.shape[0]
+    b = _scan_block_len(m)
+    starts, cls, r6, d32, lit32, npix = _fields(data, chunks_len)
+    w0i, pix_off = _initial_w(cls, r6, d32, lit32, npix)
+    w0 = torch.where(starts, w0i, 0)
+
+    # loop-invariant position-major planes, transposed once per decode
+    base_p = _pos_major((cls | (r6 << 9)).to(torch.int32), m, b)
+    d32_p = _pos_major(to_i32(d32), m, b)
+    lit32_p = _pos_major(to_i32(lit32), m, b)
+
+    def round_(w, prev_bad):
+        px = _resolve_p(base_p, d32_p, lit32_p, w, m, b)
+        # certificate: w == hash(px(w)) everywhere forces exactness
+        true_w = torch.where(starts, _hash_packed(px), 0)
+        bad = int((true_w != w).sum())  # the one host read per round
+        # bail (-1) when the mismatch count stops shrinking: only
+        # non-canonical streams stall now
+        if bad > 0 and bad >= prev_bad:
+            bad = -1
+        return px, bad
+
+    # round 1 is peeled: the anchored rebuild runs only for streams that
+    # need a second round
+    px, bad = round_(w0, 0x7FFFFFFF)
+    rounds = 1
+    while bad > 0 and rounds < _MAX_ROUNDS:
+        w = torch.where(starts, _anchored_w(cls, r6, d32, px), 0)
+        px, bad = round_(w, bad)
+        rounds += 1
+    return px, starts, npix, pix_off, bad == 0, rounds
+
+
+def _expand_packed(px32, pix_off, n_px_cap: int) -> torch.Tensor:
+    """Run expansion (telescoping-delta formulation): out[p] = seed + the
+    px deltas over bytes with pix_off <= p. Returns (n_px_cap,) int32."""
+    return expand_px(pix_off.to(torch.int32), to_i32(px32), n_px_cap)
+
+
+def _decode_device(data: torch.Tensor, chunks_len: int, n_px_cap: int):
+    """Device decode of one padded stream body. Returns (px32
+    (n_px_cap,) int32, converged, rounds)."""
+    px, _, _, pix_off, conv, rounds = _decode_core(data, chunks_len)
+    return _expand_packed(px, pix_off, n_px_cap), conv, rounds
+
+
+def decode_group(data: torch.Tensor, chunks_len, n_px_cap: int):
+    """Decode same-bucket streams one after another (peak memory stays
+    at one stream's). data: (B, M) uint8; chunks_len: B ints. Returns
+    (px32 (B, n_px_cap) int32, converged (B,) bool, rounds (B,) int)."""
+    outs, convs, rounds = [], [], []
+    for i in range(data.shape[0]):
+        out, conv, r = _decode_device(data[i], int(chunks_len[i]), n_px_cap)
+        outs.append(out)
+        convs.append(conv)
+        rounds.append(r)
+    return (torch.stack(outs), torch.tensor(convs, dtype=torch.bool),
+            torch.tensor(rounds))
+
+
+def unpack_px32(px32: np.ndarray) -> np.ndarray:
+    """(..., N) 32-bit packed pixels -> (..., N, 4) uint8 rgba."""
+    return np.ascontiguousarray(px32).view(np.uint8).reshape(
+        px32.shape + (4,))
+
+
+def decode(data: bytes, channels: int, device
+           ) -> Tuple[np.ndarray, fmt.StreamDesc]:
+    """Decode a QOI stream on `device`; pixel-identical to the reference
+    decoder (qoi.h:488). A stream whose fixpoint does not converge takes
+    `_decode_ladder`."""
+    if channels not in (0, 3, 4):
+        raise ValueError(f"channels must be 0, 3 or 4, got {channels}")
+    desc = fmt.unpack_header(data)
+    out_ch = channels if channels else desc.channels
+
+    chunks = np.frombuffer(data, dtype=np.uint8)[fmt.HEADER_SIZE:]
+    chunks_len = len(data) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
+    padded = np.zeros((buckets.bucket_size_fine(len(chunks)),), np.uint8)
+    padded[: len(chunks)] = chunks
+
+    px32, conv, _ = _decode_device(
+        torch.from_numpy(padded).to(device), chunks_len,
+        buckets.bucket_size(desc.num_pixels))
+    if not conv:
+        return _decode_ladder(data, channels)
+    img = unpack_px32(px32[: desc.num_pixels].cpu().numpy())[:, :out_ch]
+    return img.reshape(desc.height, desc.width, out_ch), desc
+
+
+def _decode_ladder(data: bytes, channels: int = 0):
+    """Fallback for fixpoint non-convergence (non-canonical streams: INDEX
+    reads of unwritten slots break the table invariant the anchored
+    rebuild relies on): the native C++ decoder (cpp/qoi_oracle.cpp).
+    Raises when it is not available: the sequential rung of the JAX
+    package is not ported yet."""
+    from qoi_tpu import oracle
+
+    if not oracle.available():
+        raise RuntimeError(
+            "stream did not converge on the device and the native decoder "
+            "(cpp/, built with make) is not available")
+    return oracle.decode(data, channels)

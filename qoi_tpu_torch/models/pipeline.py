@@ -1,0 +1,220 @@
+"""Data-parallel QOI encoder (port of qoi_tpu/models/pipeline.py, the
+`encode_device_wordsum` main path).
+
+The reference encoder's four loop carries (px_prev, run, index[64], write
+cursor -- qoi.h:406-478) each become a parallel stage:
+
+  1. pixel prep       px_prev = shift(px); eq mask
+  2. run segmentation distance to the last literal      (ops/scans.py)
+  3. table replay     last-writer-wins                  (ops/table.py)
+  4. classification   per-record words by SWAR on packed u32 lanes
+  5-6. offsets and compaction: the word-sum compaction  (ops/compact.py)
+
+u32 values are int64 in [0, 2**32) (see _bits). Not ported yet: the
+byte-plane staging (`form="bytes"`) and the alternative compactions.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from qoi_tpu import format as fmt
+
+from .._bits import M32, swar_add, swar_sub
+from ..ops import compact, scans, table
+from .buckets import bucket_size
+
+_SEED = fmt.SEED_PIXEL
+
+
+class EncoderCarry(NamedTuple):
+    """The reference encoder's carries at a tile boundary."""
+
+    prev_px: torch.Tensor  # (4,) uint8 last pixel of the tile
+    run: torch.Tensor      # 0-d int64 pending (unemitted) run length, 0..61
+    table: torch.Tensor    # (64,) int64 u32 packed table values
+    written: torch.Tensor  # (64,) bool slots ever written
+
+
+def carry_from_numpy(carry, device) -> EncoderCarry:
+    """An EncoderCarry of numpy arrays (e.g. the JAX package's carry after
+    np.asarray on each field: uint8, int32, uint32, bool) -> the port's."""
+    prev_px, run, tbl, written = (np.asarray(x) for x in carry)
+    return EncoderCarry(
+        torch.from_numpy(prev_px.astype(np.uint8)).to(device),
+        torch.tensor(int(run), dtype=torch.int64, device=device),
+        torch.from_numpy(tbl.astype(np.uint32).astype(np.int64)).to(device),
+        torch.from_numpy(written.astype(bool)).to(device))
+
+
+def carry_to_numpy(carry: EncoderCarry) -> Tuple[np.ndarray, ...]:
+    """The port's carry -> numpy arrays in the JAX carry's dtypes."""
+    return (carry.prev_px.cpu().numpy().astype(np.uint8),
+            np.int32(carry.run.item()),
+            carry.table.cpu().numpy().astype(np.uint32),
+            carry.written.cpu().numpy().astype(bool))
+
+
+class EncodedWords(NamedTuple):
+    """Per-pixel chunk records in packed word form."""
+
+    lo: torch.Tensor    # (N,) int64 u32 stream bytes 0..3, little-endian
+    hi: torch.Tensor    # (N,) int64 u32 stream bytes 4..5 in the low 16 bits
+    lens: torch.Tensor  # (N,) int64 emitted byte count (0 for run members)
+    carry: EncoderCarry
+
+
+def encode_stage_chunks(
+    px4: torch.Tensor,
+    n_valid=None,
+    *,
+    prev_in: Optional[torch.Tensor] = None,
+    run_in=None,
+    table_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    contains_last=None,
+) -> EncodedWords:
+    """Stages 1-4: per-pixel record words and lengths (the JAX
+    `encode_stage_chunks(form="words")`).
+
+    px4: (N, 4) uint8 with alpha 255 for 3-channel sources. Positions >=
+    `n_valid` are padding: forced onto the run branch so they never write
+    the table, with their emission points masked off. The incoming
+    cross-tile carry: prev_in (4,) uint8 boundary pixel (default the
+    seed), run_in pending run length, table_in (table (64,) u32, written
+    (64,) bool), contains_last whether this tile holds the stream's final
+    pixel (the end-of-stream run flush, qoi.h:417)."""
+    n = px4.shape[0]
+    dev = px4.device
+    io = torch.arange(n, device=dev)
+    if n_valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        last_pos = n - 1
+    else:
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+        valid = io < n_valid
+        last_pos = n_valid - 1
+    if contains_last is not None:
+        last_pos = torch.where(
+            torch.as_tensor(contains_last, device=dev),
+            torch.as_tensor(last_pos, device=dev), -1)
+
+    # -- stage 1: previous pixel, compared as one packed u32 per pixel
+    if prev_in is None:
+        prev_in = torch.tensor(_SEED, dtype=torch.uint8, device=dev)
+    packed = table.pack_rgba(px4)
+    prev32 = torch.cat([table.pack_rgba(prev_in.to(torch.uint8))[None],
+                        packed[:-1]])
+    eq = (packed == prev32) | ~valid
+
+    # -- stage 2: run segmentation
+    runs = scans.run_segmentation(eq, last_pos=last_pos, run_in=run_in)
+    emits_run = runs.emits_run & valid
+
+    # -- stage 3: color-table replay (only literal pixels write)
+    keys = table.hash64(px4)
+    hit0, (tbl_out, wr_out) = table.table_hit(keys, packed, write=~eq,
+                                              incoming=table_in)
+    hit = ~eq & hit0
+
+    # -- stage 4: op classification, SWAR on the packed u32 lanes; range
+    # tests use v in [-k, m) <=> (v + k) mod 256 < k + m
+    d32s = swar_sub(packed, prev32)          # per-byte mod-256 diffs
+    alpha_same = (d32s >> 24) == 0
+    t2 = swar_add(d32s, 0x00020202)          # (dr+2, dg+2, db+2)
+    is_diff = alpha_same & ((t2 & 0x00FCFCFC) == 0)
+    vr8 = d32s & 0xFF
+    vg8 = (d32s >> 8) & 0xFF
+    vb8 = (d32s >> 16) & 0xFF
+    g32 = (vg8 + 32) & 0xFF
+    gr16 = (vr8 - vg8 + 8) & 0xFF
+    gb16 = (vb8 - vg8 + 8) & 0xFF
+    is_luma = (alpha_same & ~is_diff
+               & (g32 < 64) & (gr16 < 16) & (gb16 < 16))
+    is_rgb = alpha_same & ~is_diff & ~is_luma
+
+    diff_b0 = (fmt.OP_DIFF | (t2 & 3) << 4 | ((t2 >> 8) & 3) << 2
+               | ((t2 >> 16) & 3))
+    luma_b0 = fmt.OP_LUMA | g32
+    luma_b1 = (gr16 << 4) | gb16
+    idx_byte = fmt.OP_INDEX | keys
+    run_byte = (fmt.OP_RUN | (runs.run_val - 1)) & 0xFF
+    flush_byte = (fmt.OP_RUN | (runs.flush_val - 1)) & 0xFF
+    fl = runs.flush
+    own_len = torch.where(hit | is_diff, 1,
+              torch.where(is_luma, 2, torch.where(is_rgb, 4, 5)))
+    lens = torch.where(eq, emits_run.to(torch.int64),
+                       own_len + fl.to(torch.int64))
+
+    # per-class whole-record words; the flush prefix and the run byte
+    # apply as word-level shifts
+    rgbx = (packed << 8) & 0xFFFFFF00        # r<<8 | g<<16 | b<<24
+    own_lo = torch.where(hit, idx_byte,
+             torch.where(is_diff, diff_b0,
+             torch.where(is_luma, luma_b0 | luma_b1 << 8,
+             torch.where(is_rgb, fmt.OP_RGB | rgbx, fmt.OP_RGBA | rgbx))))
+    own_hi = torch.where(is_rgb | hit | is_diff | is_luma, 0, packed >> 24)
+    lo = torch.where(fl, flush_byte | ((own_lo << 8) & M32), own_lo)
+    hi = torch.where(fl, (own_lo >> 24) | own_hi << 8, own_hi)
+    lo = torch.where(eq, torch.where(emits_run, run_byte, 0), lo)
+    hi = torch.where(eq, 0, hi)
+
+    # -- outgoing carry at the valid-region boundary (for tile chaining);
+    # pads are forced eq, so last_noneq always lands inside the region
+    last_noneq = scans.last_true_index(~eq)[-1]
+    n_val = torch.as_tensor(last_pos + 1 if n_valid is None else n_valid,
+                            dtype=torch.int64, device=dev)
+    run_in_v = torch.as_tensor(0 if run_in is None else run_in,
+                               dtype=torch.int64, device=dev)
+    trail = torch.where(last_noneq < 0,
+                        n_val + run_in_v,          # one run since tile start
+                        (n_val - 1) - last_noneq)  # run began inside the tile
+    run_out = trail % fmt.RUN_CAP
+    if contains_last is not None:
+        run_out = torch.where(torch.as_tensor(contains_last, device=dev),
+                              0, run_out)
+    last_px = torch.where(n_val > 0, px4[(n_val - 1).clamp(min=0)],
+                          prev_in.to(torch.uint8))
+    carry = EncoderCarry(last_px, run_out, tbl_out, wr_out)
+    return EncodedWords(lo, hi, lens, carry)
+
+
+def encode_device_wordsum(px4: torch.Tensor, n_valid, seg: int = 20480):
+    """Device-resident encode: word-form staging + the word-sum
+    compaction, whose slide is the CUDA kernel on the card. seg=20480
+    pixels per compaction row, as in the JAX package. Ragged n pads with
+    l=0 records. Returns (words (6*N//4,) int32 -- the stream bytes
+    little-endian -- and total 0-d int64)."""
+    ch = encode_stage_chunks(px4, n_valid)
+    return compact.compact_words6_wordsum(
+        ch.lo, ch.hi, ch.lens, px4.shape[0] * 6, seg=seg)
+
+
+def force_rgba(pixels: np.ndarray, desc: fmt.StreamDesc) -> np.ndarray:
+    """Flatten to (N, 4) uint8, forcing alpha=255 for 3-channel input."""
+    flat = np.asarray(pixels, dtype=np.uint8).reshape(-1, desc.channels)
+    if flat.shape[0] != desc.num_pixels:
+        raise ValueError(
+            f"pixel count {flat.shape[0]} != {desc.num_pixels} "
+            "from descriptor")
+    if desc.channels == 3:
+        flat = np.concatenate(
+            [flat, np.full((flat.shape[0], 1), 255, np.uint8)], axis=1)
+    return flat
+
+
+def encode(pixels: np.ndarray, desc: fmt.StreamDesc, device) -> bytes:
+    """Encode one image on `device`; byte-identical to the reference
+    encoder (qoi.h:356). Pads to a power-of-two pixel bucket and fetches
+    only the stream's words."""
+    desc.validate()
+    px4 = force_rgba(pixels, desc)
+    n = px4.shape[0]
+    padded = np.zeros((bucket_size(n), 4), np.uint8)
+    padded[:n] = px4
+    words, total = encode_device_wordsum(
+        torch.from_numpy(padded).to(device), n)
+    total = int(total)
+    body = words[: -(-total // 4)].cpu().numpy().view(np.uint8)[:total]
+    return fmt.pack_header(desc) + body.tobytes() + fmt.TRAILER

@@ -1,0 +1,158 @@
+"""Word-sum compaction of encoder records (port of the
+`compact_words6_wordsum` path of qoi_tpu/ops/compact.py).
+
+Every output word is the difference of two running sums of per-record
+word contributions, and every word has exactly one "boundary event" (the
+record owning its last byte) that defines its running sum. Events are
+built two slots per pixel in (nseg, 2*seg) rows, slid to their dense
+within-row positions (kernels/slide.py: the CUDA kernel on the card, its
+plain twin on the CPU), placed at global word offsets with one windowed
+add, and differenced. See the JAX module for the derivation.
+
+u32 values are int64 in [0, 2**32) here (see _bits); the slide and the
+output words are int32 bit patterns.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .._bits import M32, to_i32, u32
+from ..kernels.slide import slide_val
+from .scans import exclusive_cumsum
+
+#: default pixels per compaction segment (qoi_tpu/ops/compact._COMPACT_SEG)
+_COMPACT_SEG = 4096
+
+
+class WordsumEvents(NamedTuple):
+    val: torch.Tensor    # (nseg, sw) int64 u32 event values (0 when dead)
+    aux: torch.Tensor    # (nseg, sw) int64 alive bit 0 | distance << 1
+    cnt: torch.Tensor    # (nseg,) events per row
+    wbase: torch.Tensor  # (nseg,) exclusive cumsum of cnt
+    total: torch.Tensor  # 0-d: stream bytes
+    v_all: torch.Tensor  # 0-d u32: grand total of all contributions
+
+
+def compact_words6_wordsum(
+    lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, capacity: int,
+    seg: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Word-sum compaction from packed record words: lo (N,) u32 = record
+    bytes 0..3 little-endian, hi (N,) u32 = bytes 4..5, bytes at or past
+    lens[i] zero. Returns (words (capacity//4,) int32 -- the stream bytes
+    little-endian -- and total 0-d int64).
+
+    HARD CONTRACT: capacity >= total output bytes (sum of lens). The
+    windowed add's buffer is sized min(2n, capacity//4) + sw with its
+    window starts clamped, and the final-partial-word patch clamps into
+    capacity; a capacity below the true total corrupts bytes inside
+    capacity instead of truncating. Every caller bounds capacity at the
+    format's worst case (6 B/px of per-pixel staging)."""
+    if capacity % 4:
+        raise ValueError(f"capacity {capacity} is not a multiple of 4")
+    ev = wordsum_events(lo, hi, lens, seg)
+    val = slide_val(to_i32(ev.val), ev.aux.to(torch.int32))
+    return _wordsum_assemble(val, ev.wbase, ev.total, ev.v_all, capacity)
+
+
+def wordsum_events(lo, hi, lens, seg: int = 0) -> WordsumEvents:
+    """The event rows `compact_words6_wordsum` slides: records padded to a
+    multiple of the segment with l=0 records (no bytes, no events, zero
+    sums -- byte-identical output), then `_wordsum_events_words`."""
+    n = lens.shape[0]
+    s_eff = seg or _COMPACT_SEG
+    if n < s_eff:
+        s_eff = n
+    elif n % s_eff:
+        pad = s_eff - n % s_eff
+        lo = torch.cat([lo, lo.new_zeros(pad)])
+        hi = torch.cat([hi, hi.new_zeros(pad)])
+        lens = torch.cat([lens, lens.new_zeros(pad)])
+    return _wordsum_events_words(lo, hi, lens, s_eff)
+
+
+def _wordsum_events_words(lo_u, hi_u, lens, seg=0) -> WordsumEvents:
+    """Per-record word contributions, the N-length cumsums, and the
+    2-slots-per-pixel boundary-event list in (nseg, 2*seg) row form."""
+    n = lens.shape[0]
+    dev = lens.device
+    lo_u, hi_u = u32(lo_u), u32(hi_u)
+    l = lens.to(torch.int64)
+    off = exclusive_cumsum(l)
+    total = off[-1] + l[-1]
+
+    s = (off & 3) << 3
+    # c1/c2 vanish for records that do not cross a word; (x >> 1) >> (31 - s)
+    # is x >> (32 - s) without a shift by 32 at s == 0
+    c0 = (lo_u << s) & M32
+    c1 = (((lo_u >> 1) >> (31 - s)) | (hi_u << s)) & M32
+    c2 = (hi_u >> 1) >> (31 - s)
+    vsum = (c0 + c1 + c2) & M32
+    vexc = exclusive_cumsum(vsum) & M32
+    v_all = (vexc[-1] + vsum[-1]) & M32
+
+    endb = off + l
+    w0 = off >> 2
+    emits = l > 0
+    ev0 = emits & (endb >= (w0 << 2) + 4)      # owns byte 4*w0+3
+    ev1 = emits & (endb >= (w0 << 2) + 8)      # owns byte 4*(w0+1)+3
+    val0 = (vexc + c0) & M32
+    val1 = (vexc + c0 + c1) & M32
+
+    seg = seg or _COMPACT_SEG
+    if n % seg or n < seg:
+        seg = n
+    nseg = n // seg
+    sw = 2 * seg
+
+    def rows2(a, b):  # (N,) x2 -> (nseg, 2*seg) in slot order p*2+k
+        return torch.stack([a.reshape(nseg, seg), b.reshape(nseg, seg)],
+                           dim=2).reshape(nseg, sw)
+
+    val = rows2(torch.where(ev0, val0, 0), torch.where(ev1, val1, 0))
+    e0 = ev0.to(torch.int64)
+    e1 = ev1.to(torch.int64)
+    cnt = (e0 + e1).reshape(nseg, seg).sum(dim=1)
+    wbase = exclusive_cumsum(cnt)
+    wb = wbase[:, None].expand(nseg, seg).reshape(-1)
+    pm = torch.arange(seg, device=dev).repeat(nseg)  # slot pair base / 2
+    aux0 = e0 | (torch.where(ev0, 2 * pm - (w0 - wb), 0) << 1)
+    aux1 = e1 | (torch.where(ev1, 2 * pm + 1 - (w0 + 1 - wb), 0) << 1)
+    return WordsumEvents(val, rows2(aux0, aux1), cnt, wbase, total, v_all)
+
+
+def _wordsum_assemble(val, wbase, total, v_all, capacity: int):
+    """Dense per-segment event rows (int32, dead slots 0) -> global word
+    offsets (windowed add), final-partial-word patch, cumsum difference.
+    Returns (words (capacity//4,) int32, total)."""
+    nseg, sw = val.shape
+    n = nseg * sw // 2
+    w_cap = capacity // 4
+    v = u32(val)
+    if nseg == 1:
+        cends = v[0]
+    else:
+        # the rows' windows overlap; dead slots are 0, so adding is exact.
+        # Window starts clamp like the JAX scatter's CLIP mode (never
+        # engaged under the capacity contract)
+        size = min(2 * n, w_cap) + sw
+        start = wbase.clamp(0, size - sw)
+        idx = (start[:, None]
+               + torch.arange(sw, device=val.device)[None, :]).reshape(-1)
+        cends = v.new_zeros(size).index_add_(0, idx, v.reshape(-1))
+    if w_cap <= cends.shape[0]:
+        cends = cends[:w_cap]
+    else:
+        cends = torch.cat([cends, cends.new_zeros(w_cap - cends.shape[0])])
+    cends = cends & M32
+
+    # a final partial word (total % 4 != 0) has no boundary event: its
+    # running sum is the grand total. total == 0 clamps to word 0 (whose
+    # value is 0 == v_all), as the JAX dynamic_update_slice clamps
+    w_last = ((total - 1) >> 2).clamp(min=0).reshape(1)
+    cends = cends.scatter(0, w_last, v_all.reshape(1))
+
+    words = (cends - torch.cat([cends.new_zeros(1), cends[:-1]])) & M32
+    return to_i32(words), total
