@@ -2,15 +2,18 @@
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The layout mirrors qoi_tpu/ so each function's counterpart is found by
-name: ops/ (scans, table, compact, fsm), models/ (pipeline, decode_v3,
-buckets), kernels/ (the Python wrappers and their plain PyTorch twins)
-and csrc/ (the CUDA sources, built with nvcc at first use into build/).
+name: format, oracle and utils/testimages (the numpy leaves), ops/
+(scans, table, compact, fsm), models/ (pipeline, decode_v3, buckets),
+kernels/ (slide, expand, block_maps, pack, encode_stage: the Python
+wrappers and their plain PyTorch twins) and csrc/ (the CUDA sources,
+built with nvcc at first use into build/).
 
 Every public function takes its tensors on an explicit device. The facade
 below takes `device=`, defaults to "cuda" and raises when there is no
 card; `device="cpu"` runs the plain PyTorch twins of the kernels. The
-package imports no JAX: it shares only the numpy leaves of qoi_tpu
-(format, oracle, config, utils.testimages).
+package imports neither JAX nor any module of qoi_tpu: it keeps its own
+copies of the numpy leaves (format, oracle -- which binds the repo's
+cpp/ library -- and utils.testimages).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from qoi_tpu.format import StreamDesc, unpack_header
+from .format import StreamDesc, unpack_header
 
 __version__ = "0.1.0"
 

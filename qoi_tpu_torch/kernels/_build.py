@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file compiles with `nvcc` into ONE shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), keyed
-by a hash of the sources and placed in `qoi_tpu_torch/build/`. It is
-loaded with ctypes; every pointer and the stream pass as `c_void_p`.
+Every `csrc/*.cu` file compiles with its own `nvcc`, all started
+together, and the objects link into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), keyed by a
+hash of the sources and placed in `qoi_tpu_torch/build/`. It is loaded
+with ctypes; every pointer and the stream pass as `c_void_p`.
 
 Nothing here runs at import: the first kernel launch builds and loads
 the library, so importing the package on a machine without `nvcc` or a
@@ -27,7 +28,7 @@ BUILD = _PKG / "build"
 
 #: target: Hopper with its architecture-specific features (sm_90a)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -37,12 +38,19 @@ _SIGNATURES = {
                       ctypes.c_uint, _P],
     "qoi_block_maps": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                        ctypes.c_int, _P],
+    "qoi_slide_val2": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       _P],
+    "qoi_place_words": [_P, _P, _P, _P, ctypes.c_longlong,
+                        ctypes.c_longlong, _P],
+    "qoi_encode_stage": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, _P],
 }
 
 #: launches per kernel since the last `reset_launches()`; each wrapper
 #: adds one where it launches its kernel, and nowhere else
 launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
-                            "block_maps": 0}
+                            "block_maps": 0, "slide_val2": 0,
+                            "place_words": 0, "encode_stage": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -68,8 +76,9 @@ def _nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into build/libqoi_kernels_<hash>.so unless that
-    file exists already; returns its path. The nvcc log (ptxas register
-    and shared-memory lines) goes beside it as a .log file."""
+    file exists already; returns its path. One nvcc per source runs in
+    parallel, then one links. The nvcc logs (ptxas register and
+    shared-memory lines) go beside the library as a .log file."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256()
     for s in srcs + sorted(CSRC.glob("*.cuh")):
@@ -80,13 +89,30 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(src.name, p.returncode, log)
+              for src, p, log in zip(srcs, procs, logs) if p.returncode]
+    tmp = BUILD / f"{tag}.so.tmp"
+    if not failed:
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode:
+            failed.append(("link", res.returncode, logs[-1]))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
@@ -104,9 +130,11 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous int32 tensor on the same
-    CUDA device (the kernels take u32 values as int32 bit patterns)."""
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtype: torch.dtype = torch.int32) -> None:
+    """Raise unless every tensor is a contiguous `dtype` tensor on the
+    same CUDA device (the kernels take u32 values as int32 bit
+    patterns)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda":
@@ -114,8 +142,8 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                 f"{name}: tensor on {t.device}, kernel needs CUDA")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: dtype {t.dtype}, kernel takes int32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel needs contiguous tensors")
 

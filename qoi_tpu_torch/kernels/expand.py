@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from qoi_tpu import format as fmt
-
+from .. import format as fmt
 from .._bits import M32, to_i32, u32
 from . import _build
 

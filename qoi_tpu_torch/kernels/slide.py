@@ -1,10 +1,12 @@
-"""Word-sum event slide: CUDA kernel `csrc/slide.cu` and its plain twin.
+"""Event slides: CUDA kernels `csrc/slide.cu` and their plain twins.
 
-Counterpart of qoi_tpu/kernels/slide.py::slide_val. val: (nseg, sw)
-int32 (u32 bit patterns); aux: (nseg, sw) int32 with the alive flag in
-bit 0 and the slide distance in bits 1.., both as
-`ops/compact._wordsum_events_words` builds them. Returns the slid val
-plane, 0 wherever no event landed.
+Counterparts of qoi_tpu/kernels/slide.py::slide_val and slide_val2. val
+(and val2): (nseg, sw) int32 (u32 bit patterns); aux: (nseg, sw) int32
+with the alive flag in bit 0 and the slide distance in bits 1.., as
+`ops/compact._wordsum_events_words` (one plane) and
+`models/decode_v3._chunk_events` (two planes) build them. Every alive
+event's destination i - dist is unique inside its row. The slides return
+the slid planes, 0 wherever no event landed.
 """
 from __future__ import annotations
 
@@ -13,25 +15,38 @@ import torch
 from . import _build
 
 
-def slide_val_plain(val: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin: the radix-2 shift slide of
-    qoi_tpu/ops/compact._wordsum_slide -- log2(sw) passes, each moving the
-    events whose distance has that bit set, then the alive mask."""
-    nseg, sw = val.shape
+def _slide_plain(vals, aux: torch.Tensor):
+    """The radix-2 shift slide of qoi_tpu/ops/compact._wordsum_slide and
+    kernels/slide._slide_kernel2 over any number of value planes riding
+    the same moves: log2(sw) passes, each moving the events whose
+    distance has that bit set, then the alive mask."""
+    nseg, sw = aux.shape
 
     def shift_rows(x, j):
         return torch.cat([x[:, j:], x.new_zeros((nseg, j))], dim=1)
 
     bit = 1
     while bit < sw:
-        val_s, aux_s = shift_rows(val, bit), shift_rows(aux, bit)
+        aux_s = shift_rows(aux, bit)
         dbit = bit << 1
         mv_in = ((aux_s & dbit) != 0) & ((aux_s & 1) != 0)
         mv_out = ((aux & dbit) != 0) & ((aux & 1) != 0)
-        val = torch.where(mv_in, val_s, val)
+        vals = [torch.where(mv_in, shift_rows(v, bit), v) for v in vals]
         aux = torch.where(mv_in, aux_s, torch.where(mv_out, 0, aux))
         bit <<= 1
-    return torch.where((aux & 1) != 0, val, 0)
+    alive = (aux & 1) != 0
+    return [torch.where(alive, v, 0) for v in vals]
+
+
+def slide_val_plain(val: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the one-plane slide."""
+    return _slide_plain([val], aux)[0]
+
+
+def slide_val2_plain(val: torch.Tensor, val2: torch.Tensor,
+                     aux: torch.Tensor):
+    """Plain PyTorch twin of the two-plane slide; returns (val', val2')."""
+    return tuple(_slide_plain([val, val2], aux))
 
 
 def slide_val(val: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
@@ -52,3 +67,27 @@ def slide_val(val: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
             val.shape[1], _build.stream_ptr(val.device))
     _build.launched("slide_val", rc)
     return out
+
+
+def slide_val2(val: torch.Tensor, val2: torch.Tensor, aux: torch.Tensor):
+    """Slide two value planes through the same moves; returns (val',
+    val2'). CPU tensors take the plain twin; CUDA tensors launch the
+    kernel (or raise)."""
+    if not (val.shape == val2.shape == aux.shape) or val.dim() != 2:
+        raise ValueError(f"slide_val2: shapes {tuple(val.shape)}, "
+                         f"{tuple(val2.shape)} and {tuple(aux.shape)}, "
+                         "want three equal (nseg, sw)")
+    if all(t.device.type == "cpu" for t in (val, val2, aux)):
+        return slide_val2_plain(val, val2, aux)
+    _build.check_cuda("slide_val2", val, val2, aux)
+    out = torch.zeros_like(val)
+    out2 = torch.zeros_like(val2)
+    if val.numel() == 0:
+        return out, out2
+    with torch.cuda.device(val.device):
+        rc = _build.lib().qoi_slide_val2(
+            val.data_ptr(), val2.data_ptr(), aux.data_ptr(), out.data_ptr(),
+            out2.data_ptr(), val.numel(), val.shape[1],
+            _build.stream_ptr(val.device))
+    _build.launched("slide_val2", rc)
+    return out, out2

@@ -19,10 +19,11 @@ hash scan (`_initial_w`) and a certified fixpoint corrects them:
 
 u32 values are int64 in [0, 2**32) (see _bits); kernel planes are int32
 bit patterns. The fixpoint loop is a Python loop that reads the mismatch
-count to the host once per round. Not ported yet: the surgical second
-round (same output, fewer lanes), the numeric re-scan pass 3
-(apply="scan"), the dense expand, entry-state chaining and vmapped
-batches.
+count to the host once per round. The dense expand (`dense=True`) first
+packs the chunk starts' records to the front (`_compact_chunks`, whose
+two-plane slide is kernels/slide.slide_val2). Not ported yet: the
+surgical second round (same output, fewer lanes), the numeric re-scan
+pass 3 (apply="scan"), entry-state chaining and vmapped batches.
 """
 from __future__ import annotations
 
@@ -31,14 +32,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from qoi_tpu import format as fmt
-
+from .. import format as fmt
 from .._bits import to_i32
 from ..kernels.block_maps import (_CLS_ADD, _CLS_ID, _CLS_INDEX, _CLS_RGB,
                                   _CLS_RGBA, block_maps)
 from ..kernels.expand import expand_px
+from ..kernels.slide import slide_val2
 from ..ops import fsm
-from ..ops.scans import assoc_scan
+from ..ops.compact import assemble_rows
+from ..ops.scans import assoc_scan, exclusive_cumsum
 from . import buckets
 
 _SEED_HASH = fmt.hash_rgba(*fmt.SEED_PIXEL)
@@ -284,17 +286,74 @@ def _decode_core(data: torch.Tensor, chunks_len: int):
     return px, starts, npix, pix_off, bad == 0, rounds
 
 
-def _expand_packed(px32, pix_off, n_px_cap: int) -> torch.Tensor:
+#: offset of the tail slots of the dense records: past every pixel plane,
+#: so their deltas land nowhere (qoi_tpu/kernels/expand._INF)
+_INF = 0x7FFFFFF0
+
+#: bytes per compaction row of the dense records
+_DENSE_SEG = 4096
+
+
+def _chunk_events(starts, pix_off, px32):
+    """The (nseg, 4096) rows `_compact_chunks` slides: pix_off and px32 as
+    int32 planes, and aux = alive (chunk start) | d << 1 with d = index in
+    row - chunk rank in row. Returns (off_r, px_r, aux, base, n_chunks):
+    base (nseg,) is each row's first dense record."""
+    m = starts.shape[0]
+    nseg = m // _DENSE_SEG
+    a = starts.to(torch.int64)
+    dest = exclusive_cumsum(a)
+    n_chunks = dest[-1] + a[-1]
+    a_r = a.reshape(nseg, _DENSE_SEG)
+    base = exclusive_cumsum(a_r.sum(dim=1))
+    iota = torch.arange(_DENSE_SEG, device=starts.device)[None, :]
+    d = torch.where(a_r != 0,
+                    iota - (dest.reshape(nseg, _DENSE_SEG) - base[:, None]),
+                    0)
+    aux = (a_r | d << 1).to(torch.int32)
+    off_r = pix_off.to(torch.int32).reshape(nseg, _DENSE_SEG)
+    px_r = to_i32(px32).reshape(nseg, _DENSE_SEG)
+    return off_r, px_r, aux, base, n_chunks
+
+
+def _compact_chunks(starts, pix_off, px32):
+    """Per-byte (pix_off, px32) rows -> chunk-dense records in a prefix of
+    the SAME length M (a multiple of 4096). Real records pack at the front
+    through the two-plane slide (kernels/slide.slide_val2: the CUDA kernel
+    on the card); the rows assemble at their global record offsets in an
+    (M + 4096,) buffer (the slide zeroes dead slots, so overlapping
+    windows only add zeros); tail slots get (pix_off = _INF, px = 0), so
+    their deltas land nowhere and cancel out of every prefix sum. Returns
+    (off_d, px_d), (M,) int32 each (px as u32 bit patterns)."""
+    m = starts.shape[0]
+    off_r, px_r, aux, base, n_chunks = _chunk_events(starts, pix_off, px32)
+    off_s, px_s = slide_val2(off_r, px_r, aux)
+    tail = torch.arange(m, device=starts.device) >= n_chunks
+    off_d = torch.where(tail, _INF, assemble_rows(off_s, base, m))
+    px_d = torch.where(tail, 0, assemble_rows(px_s, base, m))
+    return off_d, px_d
+
+
+def _expand_packed(starts, px32, pix_off, n_px_cap: int,
+                   dense: bool = False) -> torch.Tensor:
     """Run expansion (telescoping-delta formulation): out[p] = seed + the
-    px deltas over bytes with pix_off <= p. Returns (n_px_cap,) int32."""
+    px deltas over bytes with pix_off <= p. `dense` (with M a multiple of
+    4096) first compacts the per-byte rows to chunk records
+    (`_compact_chunks`); the expand kernel takes either. Returns
+    (n_px_cap,) int32."""
+    if dense and pix_off.shape[0] % _DENSE_SEG == 0:
+        off_d, px_d = _compact_chunks(starts, pix_off, px32)
+        return expand_px(off_d, px_d, n_px_cap)
     return expand_px(pix_off.to(torch.int32), to_i32(px32), n_px_cap)
 
 
-def _decode_device(data: torch.Tensor, chunks_len: int, n_px_cap: int):
+def _decode_device(data: torch.Tensor, chunks_len: int, n_px_cap: int,
+                   dense: bool = False):
     """Device decode of one padded stream body. Returns (px32
     (n_px_cap,) int32, converged, rounds)."""
-    px, _, _, pix_off, conv, rounds = _decode_core(data, chunks_len)
-    return _expand_packed(px, pix_off, n_px_cap), conv, rounds
+    px, starts, _, pix_off, conv, rounds = _decode_core(data, chunks_len)
+    return (_expand_packed(starts, px, pix_off, n_px_cap, dense=dense),
+            conv, rounds)
 
 
 def decode_group(data: torch.Tensor, chunks_len, n_px_cap: int):
@@ -347,7 +406,7 @@ def _decode_ladder(data: bytes, channels: int = 0):
     rebuild relies on): the native C++ decoder (cpp/qoi_oracle.cpp).
     Raises when it is not available: the sequential rung of the JAX
     package is not ported yet."""
-    from qoi_tpu import oracle
+    from .. import oracle
 
     if not oracle.available():
         raise RuntimeError(

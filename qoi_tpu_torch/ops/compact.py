@@ -35,6 +35,20 @@ class WordsumEvents(NamedTuple):
     v_all: torch.Tensor  # 0-d u32: grand total of all contributions
 
 
+def assemble_rows(rows: torch.Tensor, r0: torch.Tensor, n: int):
+    """Dense per-segment rows (nseg, seg) -> one (n,) plane: row r adds at
+    [r0[r], r0[r] + seg) of an (n + seg,) buffer, so no window is
+    clipped; dead slots must be 0, so overlapping windows only add zeros.
+    The densify (kernels/pack) and the decoder's chunk compaction use it."""
+    nseg, seg = rows.shape
+    if nseg == 1:
+        return rows[0]
+    idx = r0[:, None] + torch.arange(seg, device=rows.device)[None, :]
+    out = rows.new_zeros(n + seg).index_add_(0, idx.reshape(-1),
+                                             rows.reshape(-1))
+    return out[:n]
+
+
 def compact_words6_wordsum(
     lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, capacity: int,
     seg: int = 0,

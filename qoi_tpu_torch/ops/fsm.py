@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from qoi_tpu import format as fmt
-
+from .. import format as fmt
 from .scans import assoc_scan
 
 _NSTATES = 5

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from qoi_tpu import format as fmt
+from .. import format as fmt
 
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +65,8 @@ class RunInfo(NamedTuple):
     flush_val: torch.Tensor   # int64: pending run length (valid iff flush)
 
 
-def run_segmentation(eq: torch.Tensor, last_pos=None, run_in=None) -> RunInfo:
+def run_segmentation(eq: torch.Tensor, last_pos=None, run_in=None,
+                     resets=None) -> RunInfo:
     """Resolve every RUN-chunk emission point from the (N,) equality mask
     (eq[i]: pixel i equals pixel i-1, pixel -1 being the seed or the
     incoming boundary pixel). A RUN is emitted when the run reaches 62 or
@@ -74,10 +75,15 @@ def run_segmentation(eq: torch.Tensor, last_pos=None, run_in=None) -> RunInfo:
 
     `last_pos` overrides the index of the stream's final pixel (default
     n-1; -1 for "not in this tile"); `run_in` (int in [0, 61]) is the
-    pending run length entering the tile."""
+    pending run length entering the tile. `resets` (port only; (N,) bool)
+    marks positions before which the pending run is cut to 0, as the
+    fused staging kernel cuts it at block starts after the final pixel:
+    a run restarts there as after a literal, and nothing is flushed."""
     n = eq.shape[-1]
     io = torch.arange(n, device=eq.device)
     last_noneq = last_true_index(~eq)
+    if resets is not None:
+        last_noneq = torch.maximum(last_noneq, last_true_index(resets) - 1)
     run_in = torch.as_tensor(0 if run_in is None else run_in,
                              dtype=torch.int64, device=eq.device)
     # the leading all-eq prefix continues the incoming pending run
@@ -87,6 +93,8 @@ def run_segmentation(eq: torch.Tensor, last_pos=None, run_in=None) -> RunInfo:
     run_val = (run_pos - 1) % fmt.RUN_CAP + 1
 
     prev_eq = torch.cat([(run_in > 0).reshape(1), eq[:-1]])
+    if resets is not None:
+        prev_eq = prev_eq & ~resets
     prev_run_pos = torch.cat([run_in.reshape(1), run_pos[:-1]])
     flush = ~eq & prev_eq & (prev_run_pos % fmt.RUN_CAP != 0)
     flush_val = (prev_run_pos - 1) % fmt.RUN_CAP + 1

@@ -15,8 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from qoi_tpu import format as fmt
-
+from .. import format as fmt
 from .scans import exclusive_cumsum, last_true_index
 
 _SLOTS = 64

@@ -9,13 +9,13 @@ import torch
 import jax.numpy as jnp
 
 import qoi_tpu_torch
-from qoi_tpu import format as fmt
-from qoi_tpu import oracle
 from qoi_tpu.kernels import expand as jexpand
 from qoi_tpu.models import decode_pipeline as v1
 from qoi_tpu.models import decode_v3 as jd3
 from qoi_tpu.ops import fsm as jfsm
 from qoi_tpu.utils import testimages
+from qoi_tpu_torch import format as fmt
+from qoi_tpu_torch import oracle
 from qoi_tpu_torch.kernels import block_maps as tbm
 from qoi_tpu_torch.kernels import expand as texpand
 from qoi_tpu_torch.models import buckets

@@ -12,16 +12,18 @@ import pytest
 import torch
 
 import qoi_tpu_torch
-from qoi_tpu import format as fmt
-from qoi_tpu import oracle
-from qoi_tpu.utils import testimages
+from qoi_tpu_torch import format as fmt
+from qoi_tpu_torch import oracle
 from qoi_tpu_torch._bits import to_i32
 from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as kbm
+from qoi_tpu_torch.kernels import encode_stage as kstage
 from qoi_tpu_torch.kernels import expand as kexp
+from qoi_tpu_torch.kernels import pack as kpack
 from qoi_tpu_torch.kernels import slide as kslide
-from qoi_tpu_torch.models import buckets, decode_v3
+from qoi_tpu_torch.models import buckets, decode_v3, pipeline
 from qoi_tpu_torch.ops import compact
+from qoi_tpu_torch.utils import testimages
 
 pytestmark = pytest.mark.gpu
 
@@ -154,15 +156,147 @@ def test_block_maps_kernel_matches_twin(dev, case):
         _same(got, want)
 
 
+def _slide2_events(nseg, sw, p, seed):
+    """Two random value planes and aux = alive | (index - rank) << 1."""
+    rng = np.random.default_rng(seed)
+    alive = rng.random((nseg, sw)) < p
+    rank = np.cumsum(alive, axis=1) - alive
+    d = np.where(alive, np.arange(sw)[None, :] - rank, 0)
+    aux = (alive | d << 1).astype(np.int32)
+    v1, v2 = (rng.integers(-2**31, 2**31, (nseg, sw)).astype(np.int32)
+              for _ in range(2))
+    return tuple(torch.from_numpy(x) for x in (v1, v2, aux))
+
+
+@pytest.mark.parametrize("nseg,sw,p", [
+    (37, 4096, 0.45), (3, 4096, 1.0), (5, 512, 0.0), (1, 64, 0.3)])
+def test_slide_val2_kernel_matches_twin(dev, nseg, sw, p):
+    planes = [t.to(dev) for t in _slide2_events(nseg, sw, p, nseg)]
+    for got, want in zip(kslide.slide_val2(*planes),
+                         kslide.slide_val2_plain(*planes)):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("case", ["mixed", "photo"])
+def test_dense_decode_on_card_matches_cpu_and_source(dev, case):
+    img = (testimages.mixed(160, 120, 4) if case == "mixed"
+           else testimages.photo(160, 120, 4))
+    s = oracle.encode(img, fmt.StreamDesc(160, 120, 4))
+    raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(max(buckets.bucket_size(len(raw)), 4096), np.uint8)
+    pad[: len(raw)] = raw
+    npc = buckets.bucket_size(160 * 120)
+    cpu, _, _ = decode_v3._decode_device(torch.from_numpy(pad), len(s) - 22,
+                                         npc, dense=True)
+    gpu, conv, _ = decode_v3._decode_device(torch.from_numpy(pad).to(dev),
+                                            len(s) - 22, npc, dense=True)
+    assert conv
+    _same(gpu, cpu)
+    px = decode_v3.unpack_px32(gpu.cpu().numpy())[: 160 * 120]
+    np.testing.assert_array_equal(px.reshape(120, 160, 4), img)
+
+
+def _staging(n, kind, seed):
+    rng = np.random.default_rng(seed)
+    lens = {"mixed": lambda: rng.integers(0, 7, n),
+            "six_spill": lambda: np.r_[3, np.full(n - 1, 6)],
+            "sparse": lambda: np.where(rng.random(n) < 0.01,
+                                       rng.integers(1, 7, n), 0),
+            "empty": lambda: np.zeros(n, np.int64)}[kind]()
+    st = rng.integers(0, 256, (6, n), dtype=np.uint8)
+    st = np.where(np.arange(6)[:, None] < lens[None, :], st, 0)
+    return (torch.from_numpy(st.astype(np.uint8)),
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+@pytest.mark.parametrize("n,kind", [
+    (4096 * 9, "mixed"), (4096 * 2, "six_spill"), (4096 * 4, "sparse"),
+    (4096, "empty"), (1024, "mixed")])
+def test_place_words_kernel_matches_twin(dev, n, kind):
+    st, lens = (t.to(dev) for t in _staging(n, kind, n))
+    off_d, lo_d, hi_d, total = kpack.densify_records(st, lens)
+    wp, c0, c1 = kpack._prep_planes(off_d, lo_d, hi_d, total)
+    planes = (wp.to(torch.int32), to_i32(c0), to_i32(c1))
+    for w_cap in (n * 6 // 4, int(total) // 4 + 1):   # full and truncated
+        _same(kpack.place_words(*planes, w_cap),
+              kpack.place_words_plain(*planes, w_cap))
+
+
+@pytest.mark.parametrize("n,kind", [(4096 * 9, "mixed"), (8192, "six_spill")])
+def test_compact_bytes6_pack_on_card_matches_cpu(dev, n, kind):
+    st, lens = _staging(n, kind, 3 * n)
+    bc, tc = kpack.compact_bytes6_pack(st, lens, n * 6)
+    bg, tg = kpack.compact_bytes6_pack(st.to(dev), lens.to(dev), n * 6)
+    assert int(tg) == int(tc)
+    assert torch.equal(bg.cpu(), bc)
+
+
+def _px4(img, cap):
+    h, w, ch = img.shape
+    px4 = pipeline.force_rgba(img, fmt.StreamDesc(w, h, ch))
+    out = np.zeros((cap, 4), np.uint8)
+    out[: px4.shape[0]] = px4
+    return torch.from_numpy(out), px4.shape[0]
+
+
+@pytest.mark.parametrize("case,last_pos", [
+    ("mixed", None), ("flat", None), ("flat", -1), ("flat", 5000),
+    ("palette", None), ("noise_ragged", None), ("runs_rgb", None),
+    ("big_mixed", None)])
+def test_encode_stage_kernel_matches_twin(dev, case, last_pos):
+    """Staging and lengths, zeroed bytes included. big_mixed has 1100
+    blocks, so the carry scan runs over more than one 1024-entry chunk."""
+    img, cap = {
+        "mixed": (testimages.mixed(200, 120, 4), 24576),
+        "flat": (testimages.flat(300, 40, 4), 12288),
+        "palette": (testimages.palette(300, 40, 4, colors=9, seed=5), 12288),
+        "noise_ragged": (testimages.noise(97, 51, 4, seed=8), 6144),
+        "runs_rgb": (testimages.runs_with_caps(130, 40, 3), 6144),
+        "big_mixed": (testimages.mixed(1100, 1024, 4), 1100 * 1024),
+    }[case]
+    px4, n = _px4(img, cap)
+    px4 = px4.to(dev)
+    got = kstage.encode_stage_pallas(px4, n, last_pos=last_pos)
+    want = kstage.encode_stage_plain(px4, n, last_pos)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_pack_encode_on_card_matches_oracle(dev, ch):
+    """encode_device_pack, and the fused staging packed by
+    compact_bytes6_pack, equal the oracle's bytes on every edge case."""
+    for name, img in testimages.edge_case_suite(ch).items():
+        h, w = img.shape[:2]
+        desc = fmt.StreamDesc(w, h, ch)
+        want = oracle.encode(img, desc)
+        px4, n = _px4(img, 4096)
+        px4 = px4.to(dev)
+        stag, lens = kstage.encode_stage_pallas(px4, n)
+        for buf, tot in (pipeline.encode_device_pack(px4, n),
+                         kpack.compact_bytes6_pack(stag.T.contiguous(),
+                                                   lens[:, 0], 4096 * 6)):
+            got = (fmt.pack_header(desc)
+                   + buf[: int(tot)].cpu().numpy().tobytes() + fmt.TRAILER)
+            assert got == want, name
+
+
 def test_wrappers_count_launches(dev):
     _build.reset_launches()
     z = torch.zeros((2, 8), dtype=torch.int32, device=dev)
     kslide.slide_val(z, z)
     kexp.expand_px(z[0], z[0], 4)
     kbm.block_maps(z, z, z)
+    kslide.slide_val2(z, z, z)
+    kpack.place_words(z[0], z[0], z[0], 4)
+    kstage.encode_stage_pallas(
+        torch.zeros((1024, 4), dtype=torch.uint8, device=dev), 7)
     torch.cuda.synchronize()
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
-                               "block_maps": 1}
+                               "block_maps": 1, "slide_val2": 1,
+                               "place_words": 1, "encode_stage": 1}
 
 
 @pytest.mark.parametrize("ch", [3, 4])

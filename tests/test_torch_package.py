@@ -1,4 +1,5 @@
-"""qoi_tpu_torch as a package: it imports no JAX, builds nothing at
+"""qoi_tpu_torch as a package: it imports neither JAX nor qoi_tpu, its
+copies of the numpy leaves agree with the originals, it builds nothing at
 import, picks devices explicitly (no silent CPU fallback) and converts the
 JAX encoder carry exactly."""
 import ast
@@ -13,20 +14,23 @@ import torch
 import jax.numpy as jnp
 
 import qoi_tpu_torch
+from qoi_tpu import format as jfmt
+from qoi_tpu import oracle as joracle
 from qoi_tpu.models import pipeline as jpipe
-from qoi_tpu.utils import testimages
+from qoi_tpu.utils import testimages as jtestimages
+from qoi_tpu_torch import format as tfmt
+from qoi_tpu_torch import oracle as toracle
 from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as tbm
+from qoi_tpu_torch.kernels import encode_stage as tstage
 from qoi_tpu_torch.kernels import expand as texpand
+from qoi_tpu_torch.kernels import pack as tpack
 from qoi_tpu_torch.kernels import slide as tslide
 from qoi_tpu_torch.models import pipeline as tpipe
+from qoi_tpu_torch.utils import testimages
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "qoi_tpu_torch"
-
-#: the numpy-only leaves of the JAX package the port may share
-ALLOWED_QOI_TPU = ("qoi_tpu.format", "qoi_tpu.oracle", "qoi_tpu.config",
-                   "qoi_tpu.utils.testimages")
 
 
 def _imported_names(path):
@@ -44,14 +48,11 @@ def _imported_names(path):
     str(p.relative_to(ROOT))
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
 def test_no_jax_import(path):
-    """No module of the port, nor the chip smoke script, imports jax or a
-    JAX-dependent part of qoi_tpu."""
+    """No module of the port, nor the chip smoke script, imports jax or
+    any module of qoi_tpu."""
     for name in _imported_names(ROOT / path):
         top = name.split(".")[0]
-        assert top != "jax", f"{path} imports {name}"
-        if top == "qoi_tpu":
-            assert any(name == a or name.startswith(a + ".")
-                       for a in ALLOWED_QOI_TPU), f"{path} imports {name}"
+        assert top not in ("jax", "qoi_tpu"), f"{path} imports {name}"
 
 
 def test_import_and_roundtrip_with_jax_blocked():
@@ -60,18 +61,22 @@ def test_import_and_roundtrip_with_jax_blocked():
     code = """
 import sys
 sys.modules["jax"] = None
+sys.modules["qoi_tpu"] = None
 import numpy as np
 import qoi_tpu_torch
+from qoi_tpu_torch import format, oracle
 from qoi_tpu_torch.models import pipeline, decode_v3, buckets
 from qoi_tpu_torch.ops import scans, table, compact, fsm
-from qoi_tpu_torch.kernels import slide, expand, block_maps, _build
-from qoi_tpu.utils import testimages
+from qoi_tpu_torch.kernels import (slide, expand, block_maps, pack,
+                                   encode_stage, _build)
+from qoi_tpu_torch.utils import testimages
 img = testimages.mixed(23, 9, 4)
 s = qoi_tpu_torch.encode(img, device="cpu")
 px, desc = qoi_tpu_torch.decode(s, device="cpu")
 assert np.array_equal(px, img), "roundtrip mismatch"
 assert _build._lib is None, "the CPU path must not build kernels"
-assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+tops = {m.split(".")[0] for m, v in sys.modules.items() if v}
+assert not tops & {"jax", "qoi_tpu"}, tops
 print("ok")
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -93,7 +98,9 @@ def test_cuda_default_raises_without_a_card():
                              device="cuda")
 
 
-@pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps"])
+@pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps",
+                                    "slide_val2", "place_words",
+                                    "encode_stage"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises: here
     a 'meta' tensor must raise instead of taking the plain twin."""
@@ -103,8 +110,15 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
             tslide.slide_val(z, z)
         elif kernel == "expand":
             texpand.expand_px(z[0], z[0], 16)
-        else:
+        elif kernel == "block_maps":
             tbm.block_maps(z, z, z)
+        elif kernel == "slide_val2":
+            tslide.slide_val2(z, z, z)
+        elif kernel == "place_words":
+            tpack.place_words(z[0], z[0], z[0], 16)
+        else:
+            tstage.encode_stage_pallas(
+                torch.zeros((1024, 4), dtype=torch.uint8, device="meta"), 9)
 
 
 def test_wrappers_check_shapes():
@@ -115,12 +129,109 @@ def test_wrappers_check_shapes():
         texpand.expand_px(z[0], z[0, :3], 16)
     with pytest.raises(ValueError):
         tbm.block_maps(z, z, z[:, :2])
+    with pytest.raises(ValueError):
+        tslide.slide_val2(z, z, z[:2])
+    with pytest.raises(ValueError):
+        tpack.place_words(z[0], z[0, :3], z[0], 16)
+    with pytest.raises(ValueError):     # N not a multiple of the block
+        tstage.encode_stage_pallas(torch.zeros((1000, 4), dtype=torch.uint8), 9)
+    with pytest.raises(ValueError):     # not (N, 4)
+        tstage.encode_stage_pallas(torch.zeros((1024, 3), dtype=torch.uint8), 9)
 
 
 def test_launch_counts_start_at_zero_and_reset():
     _build.reset_launches()
-    assert set(_build.launches) == {"slide_val", "expand_px", "block_maps"}
+    assert set(_build.launches) == {"slide_val", "expand_px", "block_maps",
+                                    "slide_val2", "place_words",
+                                    "encode_stage"}
     assert all(v == 0 for v in _build.launches.values())
+
+
+def test_format_copy_matches_the_original():
+    """The port's format.py: the same constants, hash, and header
+    pack/unpack (and the same rejections) on random descriptors."""
+    for name in ("OP_INDEX", "OP_DIFF", "OP_LUMA", "OP_RUN", "OP_RGB",
+                 "OP_RGBA", "MASK_2", "MAGIC", "HEADER_SIZE", "TRAILER_SIZE",
+                 "TRAILER", "RUN_CAP", "PIXELS_MAX", "SRGB", "LINEAR",
+                 "HASH_MULTIPLIERS", "SEED_PIXEL"):
+        assert getattr(tfmt, name) == getattr(jfmt, name), name
+    rng = np.random.default_rng(4)
+    for r, g, b, a in rng.integers(0, 256, (200, 4)):
+        assert tfmt.hash_rgba(r, g, b, a) == jfmt.hash_rgba(r, g, b, a)
+    for _ in range(100):
+        w, h = (int(x) for x in rng.integers(1, 5000, 2))
+        ch, cs = int(rng.choice([3, 4])), int(rng.integers(0, 2))
+        hdr = jfmt.pack_header(jfmt.StreamDesc(w, h, ch, cs))
+        assert tfmt.pack_header(tfmt.StreamDesc(w, h, ch, cs)) == hdr
+        desc = tfmt.unpack_header(hdr + tfmt.TRAILER)
+        assert (desc.width, desc.height, desc.channels, desc.colorspace) \
+            == (w, h, ch, cs)
+        assert desc.max_stream_bytes() == jfmt.unpack_header(
+            hdr + jfmt.TRAILER).max_stream_bytes()
+    for bad in (tfmt.StreamDesc(0, 5, 4), tfmt.StreamDesc(5, 5, 2),
+                tfmt.StreamDesc(3, 133333333, 4)):
+        with pytest.raises(ValueError):
+            tfmt.pack_header(bad)
+    with pytest.raises(ValueError, match="bad magic"):
+        tfmt.unpack_header(b"qoiX" + bytes(18))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_testimages_copy_matches_the_original(seed):
+    """Every generator of the port's testimages gives the original's
+    pixels."""
+    for ch in (3, 4):
+        pairs = [(testimages.noise(19, 7, ch, seed),
+                  jtestimages.noise(19, 7, ch, seed)),
+                 (testimages.flat(9, 4, ch), jtestimages.flat(9, 4, ch)),
+                 (testimages.gradient(33, 5, ch),
+                  jtestimages.gradient(33, 5, ch)),
+                 (testimages.palette(21, 6, ch, colors=5, seed=seed),
+                  jtestimages.palette(21, 6, ch, colors=5, seed=seed)),
+                 (testimages.runs_with_caps(130, 2, ch),
+                  jtestimages.runs_with_caps(130, 2, ch)),
+                 (testimages.seed_run_start(8, 6, ch),
+                  jtestimages.seed_run_start(8, 6, ch)),
+                 (testimages.wraparound(12, 3, ch),
+                  jtestimages.wraparound(12, 3, ch)),
+                 (testimages.mixed(41, 9, ch, seed),
+                  jtestimages.mixed(41, 9, ch, seed)),
+                 (testimages.photo(41, 9, ch, seed),
+                  jtestimages.photo(41, 9, ch, seed)),
+                 (testimages.palette_collide(30, 7, ch, seed=seed),
+                  jtestimages.palette_collide(30, 7, ch, seed=seed))]
+        for (name, a), b in zip(sorted(testimages.edge_case_suite(ch)
+                                       .items()),
+                                sorted(jtestimages.edge_case_suite(ch)
+                                       .items())):
+            assert name == b[0]
+            pairs.append((a, b[1]))
+        for a, b in pairs:
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    for a, b in ((testimages.alpha_toggle(15, 4, seed),
+                  jtestimages.alpha_toggle(15, 4, seed)),
+                 (testimages.palette_alpha(15, 4, seed=seed),
+                  jtestimages.palette_alpha(15, 4, seed=seed))):
+        assert np.array_equal(a, b)
+    assert [n for n, _ in testimages.bench_suite()] == \
+        [n for n, _ in jtestimages.bench_suite()]
+
+
+def test_oracle_copy_matches_the_original():
+    """The port's oracle binds the same cpp/ library: equal bytes and
+    pixels."""
+    if not (toracle.available() and joracle.available()):
+        pytest.skip("the C++ oracle (cpp/, make) is not built")
+    img = testimages.mixed(37, 11, 4, seed=2)
+    desc = tfmt.StreamDesc(37, 11, 4)
+    stream = toracle.encode(img, desc)
+    assert stream == joracle.encode(img, jfmt.StreamDesc(37, 11, 4))
+    for ch in (0, 3, 4):
+        px, d = toracle.decode(stream, ch)
+        jpx, jd = joracle.decode(stream, ch)
+        assert np.array_equal(px, jpx)
+        assert (d.width, d.height, d.channels) == \
+            (jd.width, jd.height, jd.channels)
 
 
 def test_carry_from_numpy_round_trips():
