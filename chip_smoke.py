@@ -30,7 +30,9 @@ and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), the
 build, each kernel's time beside its twin's, its bound and, for the
 placement, the time of one PyTorch index_add_ computing the same words;
-the per-phase times of one frame of each new path; and the rates. One
+the per-phase times of one frame of each side path and of the main
+decode (one photo and one mixed stream, every step of _decode_core and
+the expand); and the rates. One
 JSON line lists the kernels. The last line is the JSON result object.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
@@ -175,6 +177,11 @@ def main() -> int:
         return (torch.from_numpy(pad).to(dev),
                 len(stream) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE)
 
+    def want_px(frame):
+        return to_i32(torch.from_numpy(
+            np.ascontiguousarray(frame).reshape(-1, 4).view(np.uint32)
+            .reshape(-1).astype(np.int64)).to(dev))
+
     # ---- each kernel against its twin at the 4K path shapes ----------
     kernels = {}
 
@@ -235,7 +242,8 @@ def main() -> int:
     pix_off32, px32 = pix_off.to(torch.int32), to_i32(px)
     err = compare("expand_px", kexp.expand_px(pix_off32, px32, npc),
                   kexp.expand_px_xla(pix_off32, px32, npc))
-    log(f"expand_px M={m} n_px_cap={npc} (both times include the cumsum)")
+    log(f"expand_px M={m} n_px_cap={npc} (the twin's time includes its "
+        "cumsum)")
     row("expand_px", "expand.cu", "qoi_tpu/kernels/expand.py:621", err,
         cuda_ms(lambda: kexp.expand_px(pix_off32, px32, npc), 20),
         cuda_ms(lambda: kexp.expand_px_xla(pix_off32, px32, npc), 5),
@@ -342,6 +350,80 @@ def main() -> int:
             f"slide_val2 {t_sl:.3f}), expand {t_ex:.3f}")
         del data
 
+    # ---- per-phase times of the main decode ----------------------------
+    def decode_phases(data, clen):
+        """_decode_core's steps one by one, then the expand, each
+        sync-bracketed (ms). Returns (phases, per-round phases, plane)."""
+        m = data.shape[0]
+        b = decode_v3._scan_block_len(m)
+        ph = {}
+        f, ph["fields+chunk_starts"] = sync_ms(
+            lambda: decode_v3._fields(data, clen))
+        starts, cls, r6, d32, lit32, npix = f
+        (w0, pix_off), ph["initial_w"] = sync_ms(
+            lambda: decode_v3._initial_w(cls, r6, d32, lit32, npix))
+        planes, ph["planes"] = sync_ms(lambda: (
+            decode_v3._pos_major((cls | (r6 << 9)).to(torch.int32), m, b),
+            decode_v3._pos_major(to_i32(d32), m, b),
+            decode_v3._pos_major(to_i32(lit32), m, b)))
+        w = torch.where(starts, w0, 0)
+        per_round = {k: [] for k in ("anchored_w", "meta", "block_maps",
+                                     "compose", "apply", "certificate")}
+        prev_bad, rounds = 0x7FFFFFFF, 0
+        while True:
+            meta, t = sync_ms(lambda: planes[0] | (
+                decode_v3._pos_major(w, m, b) << 3).to(torch.int32))
+            per_round["meta"].append(t)
+            (root, val, proot, pval), t = sync_ms(
+                lambda: kbm.block_maps(meta, *planes[1:]))
+            per_round["block_maps"].append(t)
+            entry, t = sync_ms(
+                lambda: decode_v3._compose_entry_states(root, val))
+            per_round["compose"].append(t)
+            px, t = sync_ms(lambda: decode_v3._apply_symbolic(
+                proot, pval, entry).T.reshape(m))
+            per_round["apply"].append(t)
+
+            def certificate():
+                true_w = torch.where(starts, decode_v3._hash_packed(px), 0)
+                return int((true_w != w).sum())
+
+            bad, t = sync_ms(certificate)
+            per_round["certificate"].append(t)
+            rounds += 1
+            if bad > 0 and bad >= prev_bad:
+                bad = -1
+            if bad <= 0 or rounds >= decode_v3._MAX_ROUNDS:
+                break
+            prev_bad = bad
+            w, t = sync_ms(lambda: torch.where(
+                starts, decode_v3._anchored_w(cls, r6, d32, px), 0))
+            per_round["anchored_w"].append(t)
+        check(bad == 0, "phase decode did not converge")
+        out, ph["expand"] = sync_ms(
+            lambda: decode_v3._expand_packed(starts, px, pix_off, npc))
+        return ph, per_round, out
+
+    for label, stream, frame in (("photo", photo_streams[1], photo[1]),
+                                 ("mixed", mixed_streams[1], mixed[1])):
+        data, clen = padded_body(stream)
+        for _ in range(2):       # the second pass is the one reported
+            ph, per_round, out = decode_phases(data, clen)
+            _, t_all = sync_ms(
+                lambda: decode_v3._decode_device(data, clen, npc))
+        check(bool((out[:n] == want_px(frame)).all()),
+              f"phase decode {label}: pixels differ")
+        total = sum(ph.values()) + sum(sum(v) for v in per_round.values())
+        rounds_txt = ", ".join(
+            f"{k} " + " / ".join(f"{x:.3f}" for x in v)
+            for k, v in per_round.items() if v)
+        log(f"phases, main decode 1x4K {label} (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ph.items() if k != "expand")
+            + f"; per round ({len(per_round['block_maps'])}): {rounds_txt}"
+            f"; expand {ph['expand']:.3f}; sum {total:.3f} (_decode_device "
+            f"in one bracket {t_all:.3f})")
+        del data, out
+
     # ---- the paths, each counted on its own ---------------------------
     counts_total = {k: 0 for k in _build.launches}
 
@@ -430,11 +512,6 @@ def main() -> int:
         log(f"decode 1x4K adversarial: device fixpoint bailed after "
             f"{arounds} rounds, ladder result equals oracle.decode; "
             f"{dt * 1e3:.3f} ms, {n / 1e6 / dt:.3f} Mpx/s")
-
-    def want_px(frame):
-        return to_i32(torch.from_numpy(
-            np.ascontiguousarray(frame).reshape(-1, 4).view(np.uint32)
-            .reshape(-1).astype(np.int64)).to(dev))
 
     def fetch_stream(desc, buf, tot):
         return (fmt.pack_header(desc)

@@ -11,6 +11,10 @@ block's entry px, 1+s = entry slot s, 65 = absolute.
 Returns (root (65, nb), val (65, nb), proot (b, nb), pval (b, nb)), all
 int32 bit patterns: the whole map after the block, and the px entry after
 every position.
+
+The kernel cuts each lane into segments walked at the same time and
+composes their maps in the same launch (csrc/block_maps.cu); the twin
+walks each lane in one piece.
 """
 from __future__ import annotations
 

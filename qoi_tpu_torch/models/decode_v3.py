@@ -336,8 +336,8 @@ def _compact_chunks(starts, pix_off, px32):
 
 def _expand_packed(starts, px32, pix_off, n_px_cap: int,
                    dense: bool = False) -> torch.Tensor:
-    """Run expansion (telescoping-delta formulation): out[p] = seed + the
-    px deltas over bytes with pix_off <= p. `dense` (with M a multiple of
+    """Run expansion: out[p] = the px of the last byte with pix_off <= p
+    (the seed before the first). `dense` (with M a multiple of
     4096) first compacts the per-byte rows to chunk records
     (`_compact_chunks`); the expand kernel takes either. Returns
     (n_px_cap,) int32."""

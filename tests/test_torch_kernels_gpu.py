@@ -88,7 +88,8 @@ def test_compact_on_card_matches_cpu(dev, n, kind):
     _same(wg, wc)
 
 
-def _expand_records(m, seed, max_run=62):
+def _expand_records(m, seed, max_run=62, first=0):
+    """Per-byte (pix_off, px32) with pixel offsets from `first` on."""
     rng = np.random.default_rng(seed)
     npix = np.zeros(m, np.int64)
     px = np.zeros(m, np.uint32)
@@ -98,18 +99,23 @@ def _expand_records(m, seed, max_run=62):
         npix[i] = int(rng.integers(1, max_run + 1)) if nbytes == 1 else 1
         px[i:i + nbytes] = np.uint32(rng.integers(0, 2**32))
         i += nbytes
-    pix_off = (np.cumsum(npix) - npix).astype(np.int32)
+    pix_off = (first + np.cumsum(npix) - npix).astype(np.int32)
     return torch.from_numpy(pix_off), torch.from_numpy(px.view(np.int32))
 
 
-@pytest.mark.parametrize("m,cap,seed,max_run", [
-    (600, 512, 0, 62),          # truncation: offsets overflow the cap
-    (100, 2048, 2, 62),         # tail repeats the last chunk's px
-    (70000, 65536, 3, 62),
-    (200000, 262144, 4, 1),     # no runs: every chunk one pixel
+@pytest.mark.parametrize("m,cap,seed,max_run,first", [
+    (600, 512, 0, 62, 0),       # truncation: offsets overflow the cap
+    (100, 2048, 2, 62, 0),      # tail repeats the last chunk's px
+    (70000, 65536, 3, 62, 0),
+    (200000, 262144, 4, 1, 0),  # no runs: every chunk one pixel
+    # runs straddle the 256-byte thread blocks; cap not a multiple of one
+    (256 * 6 + 3, 256 * 40 + 77, 5, 62, 0),
+    (5000, 400000, 6, 62, 150000),       # long seed prefix
+    (3000, 5_000_000 + 13, 7, 62, 0),    # truncated: ~4.9 M-pixel tail
 ])
-def test_expand_kernel_matches_twin(dev, m, cap, seed, max_run):
-    pix_off, px = (t.to(dev) for t in _expand_records(m, seed, max_run))
+def test_expand_kernel_matches_twin(dev, m, cap, seed, max_run, first):
+    pix_off, px = (t.to(dev) for t in _expand_records(m, seed, max_run,
+                                                      first))
     _same(kexp.expand_px(pix_off, px, cap),
           kexp.expand_px_xla(pix_off, px, cap))
 
@@ -136,11 +142,16 @@ def _stream_planes(img, dev):
             pm(to_i32(d32)), pm(to_i32(lit32)))
 
 
-@pytest.mark.parametrize("case", ["mixed", "palette_alpha", "random"])
-def test_block_maps_kernel_matches_twin(dev, case):
-    if case == "random":   # every class, random slots; nb not a multiple of 64
+@pytest.mark.parametrize("case,b,nb", [
+    ("mixed", None, None), ("palette_alpha", None, None)] + [
+    ("random", b, nb) for b in (16, 32, 96, 8192) for nb in (1, 7, 77, 1792)])
+def test_block_maps_kernel_matches_twin(dev, case, b, nb):
+    """The random planes have every class on random slots, so INDEX
+    chains cross the kernel's segment edges. The kernel cuts a lane into
+    12 segments: unequal at b = 32 and 8192, some empty at b = 16 and 32.
+    nb = 1, 7 and 77 leave part of a 16-lane block empty."""
+    if case == "random":
         rng = np.random.default_rng(1)
-        b, nb = 96, 77
         cls = rng.integers(0, 5, (b, nb))
         meta = torch.from_numpy(
             (cls | rng.integers(0, 64, (b, nb)) << 3).astype(np.int32))
