@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p)
-    "qoi_slide_val": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    "qoi_slide_val": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "qoi_expand_px": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                       ctypes.c_uint, _P],
     "qoi_block_maps": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
@@ -42,7 +43,7 @@ _SIGNATURES = {
                        _P],
     "qoi_place_words": [_P, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_longlong, _P],
-    "qoi_encode_stage": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    "qoi_encode_stage": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, _P],
 }
 

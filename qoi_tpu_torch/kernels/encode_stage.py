@@ -5,11 +5,12 @@ Encoder stages 1-4 in one pass: px4 (N, 4) uint8 -> (staging (N, 6) uint8,
 lens (N, 1) int32), with staged bytes at or past each length zeroed. The
 JAX kernel walks 1024-pixel blocks in order, carrying the previous pixel,
 the run phase and the colour table; the CUDA kernel computes those
-carries instead (see its header). `last_pos` is the global index of the
-stream's final pixel (default n_valid - 1) or -1. As in the JAX kernel the
-pending run is cut to 0 at every block start after the block that holds
-last_pos -- past the stream's end for the default, so only a last_pos
-below n_valid - 1 shows the 1024-pixel block in the result.
+carries instead, in one launch, by decoupled look-back (see its header).
+`last_pos` is the global index of the stream's final pixel (default
+n_valid - 1) or -1. As in the JAX kernel the pending run is cut to 0 at
+every block start after the block that holds last_pos -- past the
+stream's end for the default, so only a last_pos below n_valid - 1 shows
+the 1024-pixel block in the result.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from . import _build
 
 #: pixels per block, the JAX kernel's default block
 _BLOCK = 1024
+#: look-back columns: the 64 slots and the last literal
+_COLS = 65
 
 
 def _run_resets(n: int, n_valid: int, last_pos: int,
@@ -77,13 +80,13 @@ def encode_stage_pallas(px4: torch.Tensor, n_valid,
     lens = torch.empty((n, 1), dtype=torch.int32, device=dev)
     if n == 0:
         return stag, lens
-    nblk = n // _BLOCK
-    summ = torch.empty((65, nblk), dtype=torch.int32, device=dev)
-    carry = torch.empty((65, nblk), dtype=torch.int32, device=dev)
+    # the ticket, then 65 look-back status words a block; 0 = unpublished
+    scratch = torch.zeros(1 + _COLS * (n // _BLOCK), dtype=torch.int64,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = _build.lib().qoi_encode_stage(
             px4.data_ptr(), stag.data_ptr(), lens.data_ptr(),
-            summ.data_ptr(), carry.data_ptr(), n, min(n_valid, n), last_pos,
+            scratch.data_ptr(), n, min(n_valid, n), last_pos,
             _build.stream_ptr(dev))
     _build.launched("encode_stage", rc)
     return stag, lens

@@ -7,12 +7,47 @@ with the alive flag in bit 0 and the slide distance in bits 1.., as
 `models/decode_v3._chunk_events` (two planes) build them. Every alive
 event's destination i - dist is unique inside its row. The slides return
 the slid planes, 0 wherever no event landed.
+
+On the card the one-plane slide holds each row in one thread-block
+cluster's shared memory (see `csrc/slide.cu`), so a row may be at most
+`MAX_SW` words wide; `cluster_shape` picks the cluster.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+
+#: blocks of one cluster at most (the portable cluster size), the words of
+#: one block's slice at most (48 KB of shared memory) and the slice width
+#: below which the cluster stops growing
+MAX_CLUSTER = 8
+MAX_SLICE = 12288
+_TARGET_SLICE = 4096
+#: the widest row the one-plane kernel takes (the callers pass at most
+#: 2 * 20480, `ops/compact`'s segment)
+MAX_SW = MAX_CLUSTER * MAX_SLICE
+
+
+def cluster_shape(sw: int):
+    """(k, slice) of the one-plane kernel for rows of sw words: k blocks
+    (a power of two, at most MAX_CLUSTER, the least whose slices are at
+    most _TARGET_SLICE words) of `slice` words each (ceil(sw / k), made a
+    multiple of 4 when sw is one, so that 16-byte loads and stores stay
+    aligned). The last slice may be shorter. Raises ValueError past
+    MAX_SW."""
+    if sw > MAX_SW:
+        raise ValueError(
+            f"slide_val: rows of {sw} words exceed the kernel's limit of "
+            f"{MAX_SW} ({MAX_CLUSTER} blocks of a cluster x {MAX_SLICE} "
+            "words of shared memory); use a narrower segment")
+    k = 1
+    while k < MAX_CLUSTER and -(-sw // k) > _TARGET_SLICE:
+        k *= 2
+    width = -(-sw // k)
+    if sw % 4 == 0:
+        width = -(-width // 4) * 4
+    return k, width
 
 
 def _slide_plain(vals, aux: torch.Tensor):
@@ -51,20 +86,25 @@ def slide_val2_plain(val: torch.Tensor, val2: torch.Tensor,
 
 def slide_val(val: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
     """Slide events to their within-row positions. CPU tensors take the
-    plain twin; CUDA tensors launch the kernel (or raise)."""
+    plain twin; CUDA tensors launch the kernel (or raise; rows wider than
+    MAX_SW raise ValueError)."""
     if val.shape != aux.shape or val.dim() != 2:
         raise ValueError(f"slide_val: shapes {tuple(val.shape)} and "
                          f"{tuple(aux.shape)}, want two equal (nseg, sw)")
     if val.device.type == "cpu" and aux.device.type == "cpu":
         return slide_val_plain(val, aux)
     _build.check_cuda("slide_val", val, aux)
-    out = torch.zeros_like(val)
+    nseg, sw = val.shape
+    k, width = cluster_shape(sw)
+    out = torch.empty_like(val)  # the kernel writes every word
     if val.numel() == 0:
         return out
+    vec = sw % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (val, aux,
+                                                                out))
     with torch.cuda.device(val.device):
         rc = _build.lib().qoi_slide_val(
-            val.data_ptr(), aux.data_ptr(), out.data_ptr(), val.numel(),
-            val.shape[1], _build.stream_ptr(val.device))
+            val.data_ptr(), aux.data_ptr(), out.data_ptr(), nseg, sw, k,
+            width, int(vec), _build.stream_ptr(val.device))
     _build.launched("slide_val", rc)
     return out
 

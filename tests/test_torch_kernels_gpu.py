@@ -233,6 +233,36 @@ def test_place_words_kernel_matches_twin(dev, n, kind):
               kpack.place_words_plain(*planes, w_cap))
 
 
+def _slide_events(nseg, sw, p, seed):
+    """One random value plane and aux = alive | (index - rank) << 1: the
+    events land densely at [0, count) of each row."""
+    v, _, aux = _slide2_events(nseg, sw, p, seed)
+    return v, aux
+
+
+@pytest.mark.parametrize("nseg,sw,p", [
+    (3, 16, 0.5),            # one block (k = 1)
+    (4, 4098, 0.4),          # k = 2, sw not a multiple of 4: word stores
+    (5, 20002, 0.3),         # k = 8, slices of 2501 words, the last 2495
+    (6, 32780, 0.5),         # k = 8, slices of 4100 words, the last 4080
+    (7, 40960, 0.35),        # the 4K shape's row
+    (2, kslide.MAX_SW, 0.6),  # the widest row accepted: 8 x 12288 words
+    (2, kslide.MAX_SW, 1.0)])
+def test_slide_val_cluster_rows(dev, nseg, sw, p):
+    """The cluster slide at rows k does not divide, both store widths and
+    the widest row."""
+    k, width = kslide.cluster_shape(sw)
+    assert k * width >= sw and width <= kslide.MAX_SLICE
+    val, aux = (t.to(dev) for t in _slide_events(nseg, sw, p, sw))
+    _same(kslide.slide_val(val, aux), kslide.slide_val_plain(val, aux))
+
+
+def test_slide_val_refuses_rows_past_the_limit(dev):
+    z = torch.zeros((1, kslide.MAX_SW + 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=str(kslide.MAX_SW)):
+        kslide.slide_val(z, z)
+
+
 @pytest.mark.parametrize("n,kind", [(4096 * 9, "mixed"), (8192, "six_spill")])
 def test_compact_bytes6_pack_on_card_matches_cpu(dev, n, kind):
     st, lens = _staging(n, kind, 3 * n)
@@ -273,6 +303,51 @@ def test_encode_stage_kernel_matches_twin(dev, case, last_pos):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.cpu(), w.cpu())
+
+
+def _stage_same(px4, n, last_pos=None):
+    got = kstage.encode_stage_pallas(px4, n, last_pos=last_pos)
+    want = kstage.encode_stage_plain(px4, n, last_pos)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("case", ["mixed", "flat", "short"])
+def test_encode_stage_one_block(dev, case):
+    """N = 1024: block 0 alone, no look-back."""
+    img = {"mixed": testimages.mixed(32, 32, 4),
+           "flat": testimages.flat(32, 32, 4),
+           "short": testimages.noise(30, 21, 4, seed=2)}[case]
+    px4, n = _px4(img, 1024)
+    _stage_same(px4.to(dev), n)
+
+
+@pytest.mark.parametrize("last_pos", [None, -1])
+def test_encode_stage_one_colour_4k(dev, last_pos):
+    """A one-colour 4K frame: after pixel 0 no pixel is a literal, so 63
+    slots and the literal column are never written again and every
+    block's look-back runs to a final word far back."""
+    px4, n = _px4(testimages.flat(3840, 2160, 4), 1 << 23)
+    _stage_same(px4.to(dev), n, last_pos)
+
+
+def test_encode_stage_back_to_back(dev):
+    """Calls queued back to back on one stream, at two sizes and with the
+    run cut moved, each get fresh look-back words and stay exact."""
+    a, n_a = _px4(testimages.palette(300, 40, 4, colors=9, seed=5), 12288)
+    b, n_b = _px4(testimages.mixed(200, 120, 4), 24576)
+    a, b = a.to(dev), b.to(dev)
+    calls = [(a, n_a, None), (a[:8192], 8000, None), (a, n_a, 5000),
+             (b, n_b, None), (a, n_a, None)]
+    got = [kstage.encode_stage_pallas(px, n, last_pos=lp)
+           for px, n, lp in calls]
+    for (px, n, lp), g in zip(calls, got):
+        want = kstage.encode_stage_plain(px, n, lp)
+        torch.cuda.synchronize()
+        for gg, w in zip(g, want):
+            assert torch.equal(gg.cpu(), w.cpu())
 
 
 @pytest.mark.parametrize("ch", [3, 4])
