@@ -6,34 +6,42 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the six kernels against its plain PyTorch
-twin at the shapes its path gives it at 4K (results must be exactly
-equal), then drives four paths through the port's public functions on
-3840x2160 frames, each with the launch counts set to 0 just before it and
-read just after:
+in parallel), holds each of the eight kernels against its plain PyTorch
+twin (results must be exactly equal): the six parallel ones at the
+shapes their paths give them at 4K, the two sequential scans at 65,536
+pixels from a random entry state, and decode_scan also on a whole 4 MiB
+streamed tile from its real entry state. Then it drives five paths through the port's public functions,
+each with the launch counts set to 0 just before it and read just after:
 
-  1. the main path: encode 8 RGBA `mixed` frames (seeds 3..10) and 1 RGB
-     `photo` frame (3 times) with qoi_tpu_torch.encode, each
-     byte-identical to the C++ oracle; decode 8 `photo` and 8 `mixed`
-     streams with
-     decode_v3.decode_group and qoi_tpu_torch.decode, pixel-identical to
-     the sources; decode the adversarial stream (INDEX reads of a
+  1. the main path: encode 4 RGBA `mixed` 4K frames (seeds 3..6) and 1
+     RGB `photo` 4K frame (3 times) with qoi_tpu_torch.encode, each
+     byte-identical to the C++ oracle; decode 4 `photo` and 4 `mixed`
+     4K streams with decode_v3.decode_group and qoi_tpu_torch.decode
+     (whose mixed streams take the surgical second round), pixel-identical
+     to the sources; decode the adversarial 4K stream (INDEX reads of a
      never-written slot), which must fail the device fixpoint and match
      the oracle through the native ladder;
-  2. the pack encode: pipeline.encode_device_pack on the same 8 + 1
+  2. the pack encode: pipeline.encode_device_pack on the same 4 + 1
      frames, byte-identical to the oracle;
   3. the fused staging: encode_stage.encode_stage_pallas, packed by
      pack.compact_bytes6_pack, on one mixed frame, byte-identical;
-  4. the dense decode: decode_v3._decode_device(dense=True) on the 8
-     photo and 8 mixed streams, pixel-identical to the sources;
+  4. the dense decode: decode_v3._decode_device(dense=True) on the 4
+     photo and 4 mixed streams, pixel-identical to the sources;
+  5. the streamed path (images above 16 Mpx): a 7680x4320 RGBA `mixed`
+     and a 7680x4320 RGB `photo` frame encoded and decoded through the
+     facade, byte- and pixel-identical; the 4096x4097 adversarial stream
+     through the facade, whose tiles the decode_scan kernel repairs; and
+     the sequential codec (models/scan_codec) at 4K on the adversarial
+     stream and a mixed frame, against the oracle;
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), the
 build, each kernel's time beside its twin's, its bound and, for the
 placement, the time of one PyTorch index_add_ computing the same words;
 the per-phase times of one frame of each side path and of the main
-decode (one photo and one mixed stream, every step of _decode_core and
-the expand); and the rates. One
+decode (one photo and one mixed stream, every step of _decode_core, the
+surgical round beside a full second round, and the expand); and the
+rates, per-tile times and peak device memory of the streamed path. One
 JSON line lists the kernels. The last line is the JSON result object.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
@@ -48,7 +56,13 @@ import time
 import numpy as np
 
 W, H = 3840, 2160
-NFRAMES = 8
+NFRAMES = 4
+#: the streamed path's frames: 8K UHD, 33.2 Mpx, above the 16 Mpx switch
+W8, H8 = 7680, 4320
+#: sequential scan kernels against their twins at small size: pixels
+SCAN_PX = 1 << 16
+#: the streamed path's tile (pixels for encode, bytes for decode)
+TILE = 1 << 22
 SEEDS = range(3, 3 + NFRAMES)
 
 #: the H100 SXM data sheet at the full 700 W limit: HBM bandwidth, and the
@@ -111,8 +125,10 @@ def main() -> int:
     from qoi_tpu_torch.kernels import encode_stage as kstage
     from qoi_tpu_torch.kernels import expand as kexp
     from qoi_tpu_torch.kernels import pack as kpack
+    from qoi_tpu_torch.kernels import scan_codec as kscan
     from qoi_tpu_torch.kernels import slide as kslide
-    from qoi_tpu_torch.models import buckets, decode_v3, pipeline
+    from qoi_tpu_torch.models import (buckets, decode_v3, pipeline,
+                                      scan_codec, streamed)
     from qoi_tpu_torch.ops import compact
     from qoi_tpu_torch.utils import testimages
 
@@ -189,6 +205,9 @@ def main() -> int:
     del ch, ev
     err = compare("slide_val", kslide.slide_val(val, aux),
                   kslide.slide_val_plain(val, aux))
+    # the first timing of the run: ~0.2 s of launches first, so that it
+    # does not read the card's clocks still rising from idle
+    cuda_ms(lambda: kslide.slide_val(val, aux), 2000)
     log(f"slide_val planes {tuple(val.shape)}")
     k, width = kslide.cluster_shape(val.shape[1])
     log(f"slide_val cluster: {k} blocks a row, slices of {width} words "
@@ -225,7 +244,7 @@ def main() -> int:
         plain_ms, 20 * meta.numel() + 8 * 65 * nb, 20 * meta.numel())
     del meta, d32_p, lit32_p
 
-    px, starts, _, pix_off, conv, rounds = decode_v3._decode_core(data, clen)
+    px, starts, _, pix_off, conv, _, _ = decode_v3._decode_core(data, clen)
     check(conv, "4K mixed stream did not converge for the expand input")
     pix_off32, px32 = pix_off.to(torch.int32), to_i32(px)
     err = compare("expand_px", kexp.expand_px(pix_off32, px32, npc),
@@ -299,6 +318,87 @@ def main() -> int:
                 14 * npc, 80 * npc)
         del px4
 
+    # the streamed path's inputs: two 8K frames and the adversarial stream
+    t0 = time.perf_counter()
+    desc8 = (fmt.StreamDesc(W8, H8, 4), fmt.StreamDesc(W8, H8, 3))
+    big = [("RGBA mixed", testimages.mixed(W8, H8, 4, seed=3), desc8[0]),
+           ("RGB photo", testimages.photo(W8, H8, 3, seed=3), desc8[1])]
+    big = [(label, frame, desc, oracle.encode(frame, desc))
+           for label, frame, desc in big]
+    desc_adv = fmt.StreamDesc(4096, 4097, 4)
+    adv_big = (fmt.pack_header(desc_adv) + b"\x05" * desc_adv.num_pixels
+               + fmt.TRAILER)
+    adv_img = oracle.decode(adv_big)[0]
+    adv4 = fmt.pack_header(desc4) + b"\x05" * n + fmt.TRAILER
+    adv4_img = oracle.decode(adv4)[0]
+    adv4_canonical = oracle.encode(adv4_img, desc4)
+    log(f"streamed inputs: 2 {W8}x{H8} frames + oracle streams, the "
+        f"{desc_adv.width}x{desc_adv.height} adversarial stream, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+    # Q: the sequential scans. decode_scan at SCAN_PX pixels from a random
+    # entry state, on the adversarial bytes (one INDEX byte a pixel, the
+    # repair path's input) and on a 4K mixed stream's first bytes; then at
+    # the streamed path's shape: the second 4 MiB tile of the 8K mixed
+    # stream from its real entry state (the first tile's exit), held
+    # against its twin and the fixpoint's pixels of that tile, and timed.
+    # encode_scan on a 4K mixed frame's first SCAN_PX pixels (the twins
+    # walk in Python; scan_codec.encode runs it at 4K, held to the oracle).
+    rng = np.random.default_rng(5)
+    state = torch.from_numpy(
+        rng.integers(-2**31, 2**31, 65).astype(np.int32)).to(dev)
+    adv_bytes = torch.full((SCAN_PX + 8,), 5, dtype=torch.uint8, device=dev)
+    mix_bytes = torch.from_numpy(np.frombuffer(mixed_streams[0], np.uint8)[
+        fmt.HEADER_SIZE:fmt.HEADER_SIZE + 8 * SCAN_PX].copy()).to(dev)
+    errs = []
+    for label, body in (("mixed", mix_bytes), ("adversarial", adv_bytes)):
+        got = kscan.decode_scan(body, SCAN_PX, body.numel(), state)
+        want = kscan.decode_scan_plain(body.cpu(), SCAN_PX, body.numel(),
+                                       state.cpu())
+        errs += [compare(f"decode_scan {label} [{i}]", g.cpu(), w_)
+                 for i, (g, w_) in enumerate(zip(got, want))]
+    del adv_bytes, mix_bytes
+    stream8 = big[0][3]
+    data8 = torch.from_numpy(np.frombuffer(stream8, np.uint8)[
+        fmt.HEADER_SIZE:fmt.HEADER_SIZE + 2 * TILE].copy()).to(dev)
+    clen8 = len(stream8) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
+    _, used1, entry = streamed._dec_tile_at(
+        data8, 0, clen8, streamed._seed65(dev), TILE, TILE, 12, 1 << 30)
+    fix2, used2, _ = streamed._dec_tile_at(data8, used1, clen8, entry, TILE,
+                                           TILE, 12, 1 << 30)
+    body, state, n2 = data8[used1:used1 + TILE], to_i32(entry), fix2.numel()
+    got = kscan.decode_scan(body, n2, used2, state)
+    want, plain_ms = sync_ms(lambda: kscan.decode_scan_plain(
+        body.cpu(), n2, used2, state.cpu()))
+    errs += [compare(f"decode_scan 8K tile 2 [{i}]", g.cpu(), w_)
+             for i, (g, w_) in enumerate(zip(got, want))]
+    compare("decode_scan 8K tile 2 vs the fixpoint", got[0], fix2)
+    ms = cuda_ms(lambda: kscan.decode_scan(body, n2, used2, state), 3)
+    log(f"decode_scan: {SCAN_PX} px from a random entry state (adversarial "
+        f"and mixed), and tile 2 of the 8K mixed stream ({used2} B, {n2} "
+        f"px) from tile 1's exit state, equal to its twin and to the "
+        f"fixpoint; tile {n2 / 1e3 / ms:.3f} Mpx/s (plain: one run, host "
+        "clock)")
+    # per pixel 4 bytes written, each byte read once; ~30 integer
+    # operations a step
+    row("decode_scan", "scan_codec.cu", "qoi_tpu/models/scan_codec.py:147",
+        max(errs), ms, plain_ms, used2 + 4 * n2 + 2 * 65 * 4, 30 * n2)
+    del data8, body, got, want, fix2
+    px32 = torch.from_numpy(np.ascontiguousarray(mixed[0]).reshape(-1, 4)[
+        :SCAN_PX].view(np.int32).reshape(-1).copy()).to(dev)
+    got = kscan.encode_scan(px32)
+    want, plain_ms = sync_ms(lambda: kscan.encode_scan_plain(px32.cpu()))
+    err = max(compare(f"encode_scan [{i}]", g.cpu(), w_)
+              for i, (g, w_) in enumerate(zip(got, want)))
+    ms = cuda_ms(lambda: kscan.encode_scan(px32), 5)
+    log(f"encode_scan: {SCAN_PX} px of a 4K mixed frame; "
+        f"{SCAN_PX / 1e3 / ms:.3f} Mpx/s (plain: one run, host clock)")
+    # per pixel: 4 bytes read, 6 + 4 written; ~60 integer operations
+    row("encode_scan", "scan_codec.cu", "qoi_tpu/models/scan_codec.py:75",
+        err, ms, plain_ms, 14 * SCAN_PX, 60 * SCAN_PX)
+    del px32
+
     # ---- per-phase times of one frame of each new path ----------------
     px4 = px4_of(mixed[1], desc4)
     for _ in range(2):       # the second pass is the one reported
@@ -325,7 +425,7 @@ def main() -> int:
         for _ in range(2):
             core, t_core = sync_ms(lambda: decode_v3._decode_core(data,
                                                                   clen))
-            px, starts, _, pix_off, _, _ = core
+            px, starts, _, pix_off = core[:4]
             ev2, t_ev = sync_ms(lambda: decode_v3._chunk_events(
                 starts, pix_off, px))
             _, t_sl = sync_ms(lambda: kslide.slide_val2(*ev2[:3]))
@@ -357,7 +457,7 @@ def main() -> int:
         w = torch.where(starts, w0, 0)
         per_round = {k: [] for k in ("anchored_w", "meta", "block_maps",
                                      "compose", "apply", "certificate")}
-        prev_bad, rounds = 0x7FFFFFFF, 0
+        prev_bad, rounds, surgical = 0x7FFFFFFF, 0, None
         while True:
             meta, t = sync_ms(lambda: planes[0] | (
                 decode_v3._pos_major(w, m, b) << 3).to(torch.int32))
@@ -379,6 +479,24 @@ def main() -> int:
             bad, t = sync_ms(certificate)
             per_round["certificate"].append(t)
             rounds += 1
+            if rounds == 1 and bad > 0 and m // b >= 256:
+                # the surgical round 2 as _decode_core runs it (windows,
+                # narrow rebuild, certificate), timed on its own; the
+                # loop goes on with the full round 2 for its phases
+                def surgical_round():
+                    mis = torch.where(starts, decode_v3._hash_packed(px),
+                                      0) != w
+                    ids = decode_v3._surgical_windows(
+                        mis.reshape(m // b, b).any(dim=1))
+                    if ids is None:
+                        return "windows do not cover"
+                    px2, w2, _ = decode_v3._surgical_round(
+                        (cls | (r6 << 9), d32, lit32), px, w, w0,
+                        (root, val, entry, proot), ids, m, b)
+                    bad2 = int((torch.where(
+                        starts, decode_v3._hash_packed(px2), 0) != w2).sum())
+                    return f"{bad2} mismatches after it"
+                surgical = sync_ms(surgical_round)
             if bad > 0 and bad >= prev_bad:
                 bad = -1
             if bad <= 0 or rounds >= decode_v3._MAX_ROUNDS:
@@ -390,26 +508,35 @@ def main() -> int:
         check(bad == 0, "phase decode did not converge")
         out, ph["expand"] = sync_ms(
             lambda: decode_v3._expand_packed(starts, px, pix_off, npc))
-        return ph, per_round, out
+        return ph, per_round, surgical, out
 
     for label, stream, frame in (("photo", photo_streams[1], photo[1]),
                                  ("mixed", mixed_streams[1], mixed[1])):
         data, clen = padded_body(stream)
         for _ in range(2):       # the second pass is the one reported
-            ph, per_round, out = decode_phases(data, clen)
-            _, t_all = sync_ms(
+            ph, per_round, surgical, out = decode_phases(data, clen)
+            (_, _, r_s), t_all = sync_ms(
                 lambda: decode_v3._decode_device(data, clen, npc))
+            (_, _, r_f), t_full = sync_ms(lambda: decode_v3._decode_device(
+                data, clen, npc, surgical=False))
         check(bool((out[:n] == want_px(frame)).all()),
               f"phase decode {label}: pixels differ")
         total = sum(ph.values()) + sum(sum(v) for v in per_round.values())
         rounds_txt = ", ".join(
             f"{k} " + " / ".join(f"{x:.3f}" for x in v)
             for k, v in per_round.items() if v)
+        full2 = sum(v[1] for v in per_round.values() if len(v) > 1) + sum(
+            per_round["anchored_w"][:1])
+        surg_txt = ("" if surgical is None else
+                    f"; surgical round 2 {surgical[1]:.3f} ({surgical[0]}) "
+                    f"vs the full round 2 above {full2:.3f}")
         log(f"phases, main decode 1x4K {label} (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in ph.items() if k != "expand")
             + f"; per round ({len(per_round['block_maps'])}): {rounds_txt}"
-            f"; expand {ph['expand']:.3f}; sum {total:.3f} (_decode_device "
-            f"in one bracket {t_all:.3f})")
+            f"{surg_txt}; expand {ph['expand']:.3f}; sum of the full rounds' "
+            f"phases {total:.3f}; _decode_device in one bracket "
+            f"{t_all:.3f} ({r_s} rounds), with surgical=False {t_full:.3f} "
+            f"({r_f} rounds)")
         del data, out
 
     # ---- the paths, each counted on its own ---------------------------
@@ -417,15 +544,17 @@ def main() -> int:
 
     def counted(label, needs, fn):
         """Run one path with the launch counts and the peak-memory counter
-        reset just before it, and read both just after."""
+        reset just before it, and read both just after (a path that resets
+        the counter itself returns its own peak in GiB)."""
         torch.cuda.synchronize()
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        fn()
+        own_peak = fn() or 0.0
         torch.cuda.synchronize()
         counts = dict(_build.launches)
+        peak = max(own_peak, torch.cuda.max_memory_allocated() / 2**30)
         log(f"launches in the {label} run: {counts}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            f"{peak:.3f} GiB")
         for name in needs:
             check(counts[name] > 0,
                   f"kernel {name} never launched by the {label} run")
@@ -433,7 +562,7 @@ def main() -> int:
             counts_total[k] += v
 
     def main_path():
-        # encode: 8 RGBA mixed + 1 RGB photo (3 times, its one-frame time
+        # encode: the RGBA mixed + 1 RGB photo (3 times, its one-frame time
         # spreads widely), byte-identical to the oracle
         ts = []
         for i, frame in enumerate(mixed):
@@ -563,12 +692,81 @@ def main() -> int:
                 f"{NFRAMES * n / 1e3 / sum(ms_all):.3f} Mpx/s; rounds "
                 f"{rounds}")
 
+    peaks = []
+
+    def timed_peak(fn):
+        """(result, host seconds, peak device GiB) of fn()."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        return out, time.perf_counter() - t0, peaks[-1]
+
+    def streamed_path():
+        for label, frame, desc, stream in big:
+            nb = desc.num_pixels
+            dts = []
+            for _ in range(2):   # the first call also pins its host tiles
+                k0 = _build.launches["slide_val"]
+                got, dt, peak = timed_peak(
+                    lambda: qoi_tpu_torch.encode(frame, device=dev))
+                tiles = _build.launches["slide_val"] - k0
+                check(got == stream, f"streamed encode {label}")
+                dts.append(dt)
+            log(f"streamed encode {W8}x{H8} {label} via qoi_tpu_torch."
+                f"encode, twice: byte-identical to oracle; {dt * 1e3:.3f} "
+                f"ms (first {dts[0] * 1e3:.3f}), {nb / 1e6 / dt:.3f} Mpx/s, "
+                f"{tiles} tiles, {dt * 1e3 / tiles:.3f} ms/tile, peak "
+                f"{peak:.3f} GiB")
+            k0 = _build.launches["expand_px"]
+            (img, _), dt, peak = timed_peak(
+                lambda: qoi_tpu_torch.decode(stream, device=dev))
+            tiles = _build.launches["expand_px"] - k0
+            check(np.array_equal(img, frame), f"streamed decode {label}")
+            log(f"streamed decode {W8}x{H8} {label} ({len(stream)} B) via "
+                f"qoi_tpu_torch.decode: pixel-identical; {dt * 1e3:.3f} ms, "
+                f"{nb / 1e6 / dt:.3f} Mpx/s, {tiles} tiles, "
+                f"{dt * 1e3 / tiles:.3f} ms/tile, peak {peak:.3f} GiB")
+        nb = desc_adv.num_pixels
+        k0 = _build.launches["decode_scan"]
+        (img, _), dt, peak = timed_peak(
+            lambda: qoi_tpu_torch.decode(adv_big, device=dev))
+        check(np.array_equal(img, adv_img), "streamed adversarial decode")
+        log(f"streamed decode {desc_adv.width}x{desc_adv.height} "
+            f"adversarial via qoi_tpu_torch.decode: equals oracle.decode; "
+            f"{_build.launches['decode_scan'] - k0} tiles repaired by "
+            f"decode_scan; {dt * 1e3:.3f} ms, {nb / 1e6 / dt:.3f} Mpx/s, "
+            f"peak {peak:.3f} GiB")
+        # the sequential codec end to end at 4K: the adversarial stream
+        # and its image, and a mixed frame and its stream
+        for label, stream, frame, want in (
+                ("adversarial", adv4, adv4_img, adv4_canonical),
+                ("mixed", mixed_streams[0], mixed[0], mixed_streams[0])):
+            (img, _), dt, _ = timed_peak(
+                lambda: scan_codec.decode(stream, 0, dev))
+            check(np.array_equal(img, frame),
+                  f"scan_codec.decode 4K {label}")
+            log(f"scan_codec.decode 4K {label} (one decode_scan launch): "
+                f"equals the oracle's pixels; {dt * 1e3:.3f} ms, "
+                f"{n / 1e6 / dt:.3f} Mpx/s")
+            got, dt, _ = timed_peak(
+                lambda: scan_codec.encode(frame, desc4, dev))
+            check(got == want, f"scan_codec.encode 4K {label}")
+            log(f"scan_codec.encode 4K {label} image (one encode_scan "
+                f"launch): byte-identical to oracle; {dt * 1e3:.3f} ms, "
+                f"{n / 1e6 / dt:.3f} Mpx/s")
+        return max(peaks)
+
     counted("main-path", ("slide_val", "expand_px", "block_maps"), main_path)
     counted("pack-encode", ("place_words",), pack_path)
     counted("staging", ("encode_stage", "place_words"), staging_path)
     counted("dense-decode", ("slide_val2", "block_maps", "expand_px"),
             dense_path)
-    log(f"launches over the four counted runs: {counts_total}")
+    counted("streamed", ("slide_val", "block_maps", "expand_px",
+                         "decode_scan"), streamed_path)
+    log(f"launches over the five counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]

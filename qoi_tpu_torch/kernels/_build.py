@@ -45,13 +45,17 @@ _SIGNATURES = {
                         ctypes.c_longlong, _P],
     "qoi_encode_stage": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, _P],
+    "qoi_decode_scan": [_P, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_longlong, _P, _P, _P, _P],
+    "qoi_encode_scan": [_P, ctypes.c_longlong, _P, _P, _P],
 }
 
 #: launches per kernel since the last `reset_launches()`; each wrapper
 #: adds one where it launches its kernel, and nowhere else
 launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "block_maps": 0, "slide_val2": 0,
-                            "place_words": 0, "encode_stage": 0}
+                            "place_words": 0, "encode_stage": 0,
+                            "encode_scan": 0, "decode_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

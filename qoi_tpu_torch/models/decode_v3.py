@@ -9,21 +9,26 @@ hash scan (`_initial_w`) and a certified fixpoint corrects them:
 
   pass 1  per-block symbolic 65-entry maps, one lane per block
           (kernels/block_maps.py: the CUDA kernel on the card)
-  pass 2  compose the block maps, apply them to the seed state
+  pass 2  compose the block maps, apply them to the entry state
   pass 3  numeric px after every byte from pass 1's per-position
           symbolic px entries
   check   w == hash(px) everywhere certifies the decode; otherwise
-          the anchored rebuild gives the next w, up to 12 rounds, and
-          a stalled mismatch count bails to the native decoder
+          the surgical second round rebuilds only the dirty blocks,
+          then the anchored rebuild gives the next w, up to 12 rounds,
+          and a stalled mismatch count bails to `_decode_ladder`
   expand  per-byte px -> pixel plane (kernels/expand.py)
+
+The entry state (`entry65`, the packed px and 64 slots, default the seed
+px and an empty table) and the exit state let the streamed decoder
+(models/streamed.py) chain tiles.
 
 u32 values are int64 in [0, 2**32) (see _bits); kernel planes are int32
 bit patterns. The fixpoint loop is a Python loop that reads the mismatch
 count to the host once per round. The dense expand (`dense=True`) first
 packs the chunk starts' records to the front (`_compact_chunks`, whose
 two-plane slide is kernels/slide.slide_val2). Not ported yet: the
-surgical second round (same output, fewer lanes), the numeric re-scan
-pass 3 (apply="scan"), entry-state chaining and vmapped batches.
+numeric re-scan pass 3 (apply="scan") and vmapped batches
+(`decode_group` loops over the streams).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import format as fmt
-from .._bits import to_i32
+from .._bits import swar_sub, to_i32
 from ..kernels.block_maps import (_CLS_ADD, _CLS_ID, _CLS_INDEX, _CLS_RGB,
                                   _CLS_RGBA, block_maps)
 from ..kernels.expand import expand_px
@@ -113,7 +118,12 @@ def _initial_comb(p1, p2):
     return (ra1 | ra2) | (g << 1) | (t << 2) | (e << 8) | (va << 14)
 
 
-def _initial_w(cls, r6, d32, lit32, npix):
+def _entry_hash(entry_px32):
+    """Hash of the incoming px: the seed's, or that of a 0-d u32 tensor."""
+    return _SEED_HASH if entry_px32 is None else _hash_packed(entry_px32)
+
+
+def _initial_w(cls, r6, d32, lit32, npix, entry_px32=None):
     """Optimistic per-byte written-slot estimate as ONE affine scan over
     the coupled (alpha, hash) state, co-scanned with the pixel-offset
     cumsum:
@@ -123,8 +133,12 @@ def _initial_w(cls, r6, d32, lit32, npix):
 
     with the five coefficients packed as [ra:1 | g:1 | t:6 | e:6 | va:8].
     Exact unless an INDEX changed alpha between RGBA and RGB chunks (the
-    fixpoint corrects that). Returns (w, pix_off), both (M,) int64."""
+    fixpoint corrects that). `entry_px32` (0-d int64 u32, default the
+    seed) is the incoming px of a chained tile: its hash seeds h and its
+    alpha seeds a. Returns (w, pix_off), both (M,) int64."""
     m3, m5, m7, m11 = fmt.HASH_MULTIPLIERS
+    entry_alpha = (fmt.SEED_PIXEL[3] if entry_px32 is None
+                   else (entry_px32 >> 24) & 0xFF)
     is_rgba = cls == _CLS_RGBA
     is_rgb = cls == _CLS_RGB
     b2, b3 = lit32 & 0xFF, (lit32 >> 8) & 0xFF
@@ -147,7 +161,7 @@ def _initial_w(cls, r6, d32, lit32, npix):
         lambda a, b: (_initial_comb(a[0], b[0]), a[1] + b[1]),
         (packed, npix))
     gs, ts_, es = (ps >> 1) & 1, (ps >> 2) & 63, (ps >> 8) & 63
-    w = (gs * _SEED_HASH + ts_ * fmt.SEED_PIXEL[3] + es) & 63
+    w = (gs * _entry_hash(entry_px32) + ts_ * entry_alpha + es) & 63
     return w, inc - npix
 
 
@@ -170,22 +184,33 @@ def _anch_comb(p1, p2):
     return (g1 & g2) | (((g2 * e1 + e2) & 63) << 1)
 
 
-def _anchored_w(cls, r6, d32, px32):
+def _anchored_w(cls, r6, d32, px32, entry_px32=None):
     """Next-round written-slot estimate from a resolve's px, re-anchored
     at every reset chunk: INDEX r writes slot r (the table invariant),
     RGB/RGBA write hash(px), ADD/RUN add hash(delta) mod 64. Errors
     remain only at RGB chunks whose resolved alpha was poisoned."""
     ps = assoc_scan(_anch_comb, _anch_leaf(cls, r6, d32, px32))
-    return ((ps & 1) * _SEED_HASH + (ps >> 1)) & 63
+    return ((ps & 1) * _entry_hash(entry_px32) + (ps >> 1)) & 63
 
 
-def _compose_entry_states(root: torch.Tensor, val: torch.Tensor
-                          ) -> torch.Tensor:
+def _anchored_w_rows(cls_g, r6_g, d32_g, px_g, entry_h):
+    """`_anchored_w` over independent blocks: (K, b) planes scanned along
+    the last axis, one entry hash per row ((K,) int64) -- the surgical
+    round's narrow rebuild."""
+    ps = assoc_scan(_anch_comb, _anch_leaf(cls_g, r6_g, d32_g, px_g))
+    return ((ps & 1) * entry_h[:, None] + (ps >> 1)) & 63
+
+
+def _compose_entry_states(root: torch.Tensor, val: torch.Tensor,
+                          entry65=None, return_exit: bool = False):
     """Pass 2: inclusive compose of the (65, nb) block maps (int32 bit
-    patterns) along the blocks, then application to the seed state ->
-    the packed numeric 65-entry state at every block ENTRY, (65, nb)
-    int64 u32. The compose looks roots up over the 65-entry axis with
-    `gather`; the scan over blocks is `assoc_scan`."""
+    patterns) along the blocks, then application to the stream's entry
+    state -> the packed numeric 65-entry state at every block ENTRY,
+    (65, nb) int64 u32. `entry65` ((65,) int64 u32: px + 64 slots) is the
+    entry state, default the seed px and an empty table. `return_exit`
+    also returns the state after the LAST block ((65,) int64 u32), the
+    stream's exit state. The compose looks roots up over the 65-entry
+    axis with `gather`; the scan over blocks is `assoc_scan`."""
     shifts = torch.tensor([0, 8, 16, 24], device=root.device)[:, None, None]
     rc = (root.to(torch.int64)[None] >> shifts) & 0xFF   # (4, 65, nb)
     vc = (val.to(torch.int64)[None] >> shifts) & 0xFF
@@ -198,14 +223,21 @@ def _compose_entry_states(root: torch.Tensor, val: torch.Tensor
                 torch.where(is_abs, bv, (av.gather(1, idx) + bv) & 0xFF))
 
     rs, vs = assoc_scan(comb, (rc, vc))
-    init = torch.zeros((4, 65), dtype=torch.int64, device=root.device)
-    init[:, 0] = torch.tensor(fmt.SEED_PIXEL, device=root.device)
+    if entry65 is None:
+        init = torch.zeros((4, 65), dtype=torch.int64, device=root.device)
+        init[:, 0] = torch.tensor(fmt.SEED_PIXEL, device=root.device)
+    else:
+        init = (entry65.to(torch.int64)[None] >> shifts[:, :, 0]) & 0xFF
     nb = root.shape[1]
     looked = init[:, :, None].expand(4, 65, nb).gather(
         1, rs.clamp(max=_ABS - 1))
     applied = torch.where(rs == _ABS, vs, (vs + looked) & 0xFF)
     entry = torch.cat([init[:, :, None], applied[:, :, :-1]], dim=2)
-    return entry[0] | entry[1] << 8 | entry[2] << 16 | entry[3] << 24
+    packed = entry[0] | entry[1] << 8 | entry[2] << 16 | entry[3] << 24
+    if not return_exit:
+        return packed
+    ex = applied[:, :, -1]
+    return packed, ex[0] | ex[1] << 8 | ex[2] << 16 | ex[3] << 24
 
 
 def _apply_symbolic(proot: torch.Tensor, pval: torch.Tensor,
@@ -239,51 +271,160 @@ def _pos_major(x: torch.Tensor, m: int, b: int) -> torch.Tensor:
     return x.reshape(m // b, b).T.contiguous()
 
 
-def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int) -> torch.Tensor:
+def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None):
     """One full symbolic resolve given written slots w, from the
     loop-invariant position-major int32 planes (base_p = cls | r6 << 9,
-    d32_p, lit32_p). Returns the (M,) u32 px after every byte."""
+    d32_p, lit32_p). Returns (px32 (M,) u32 after every byte, exit65,
+    (root, val, entry, proot)): the pass-1 maps, the block entry states
+    and the per-position px roots, which the surgical round reuses."""
     meta_p = base_p | (_pos_major(w, m, b) << 3).to(torch.int32)
     root, val, proot, pval = block_maps(meta_p, d32_p, lit32_p)
-    entry = _compose_entry_states(root, val)
-    return _apply_symbolic(proot, pval, entry).T.reshape(m)
+    entry, exit65 = _compose_entry_states(root, val, entry65,
+                                          return_exit=True)
+    px = _apply_symbolic(proot, pval, entry).T.reshape(m)
+    return px, exit65, (root, val, entry, proot)
 
 
-def _decode_core(data: torch.Tensor, chunks_len: int):
+#: surgical round geometry: W windows of WB consecutive blocks, K = 64
+#: block lanes for the narrow pass 1
+_SURG_W, _SURG_WB = 8, 8
+
+
+def _surgical_windows(mis_b: torch.Tensor):
+    """Cover the dirty blocks (a block is dirty when it or the block
+    before it has a round-1 mismatch) with W windows of WB blocks,
+    greedily: each window starts at the
+    first dirty block past the previous one's end. Returns the (K,) int64
+    block ids of the windows' lanes on mis_b's device, or None when W
+    windows do not cover every dirty block.
+
+    A window past nbk - WB is clamped to start at nbk - WB, so that it
+    stays inside the stream. It then still covers its dirty blocks, but
+    it can OVERLAP the window before it: a block may appear in two
+    windows. Both copies of such a block are computed from the same
+    inputs, so they carry equal rows and either write is exact. Lanes of
+    windows that were not needed get the id nbk (out of range), and the
+    round drops them before any write. One host read: the (nbk,) flags."""
+    nbk = mis_b.shape[0]
+    dirty = mis_b.cpu().numpy()
+    dirty[1:] |= dirty[:-1].copy()
+    starts = []
+    nxt = 0
+    for s in np.flatnonzero(dirty):
+        if s >= nxt:
+            if len(starts) == _SURG_W:
+                return None
+            starts.append(min(int(s), nbk - _SURG_WB))
+            nxt = s + _SURG_WB
+    ids = np.full((_SURG_W, _SURG_WB), nbk, np.int64)
+    for j, s in enumerate(starts):
+        ids[j] = s + np.arange(_SURG_WB)
+    return torch.from_numpy(ids.reshape(-1)).to(mis_b.device)
+
+
+def _surgical_round(flat, px1, w0, w0i, extra1, ids, m: int, b: int,
+                    entry65=None):
+    """Round 2 rebuilt over the dirty windows only (qoi_tpu's round-5
+    surgical round). Round-1 mismatches are sparse and the anchored
+    rebuild's fix is local, so w and the pass-1 maps are rebuilt only for
+    the K window blocks (`ids`, from `_surgical_windows`): the anchored
+    scan per block from the w0 chain entering it, then the block_maps
+    kernel over K lanes. Pass 2 recomposes over the patched maps. A clean
+    block's px follows from the exact identity
+        px2 = px1 (+) (entry2 - entry1)[proot1]   (per channel, mod 256)
+    since its map did not change; a dirty block gets a fresh apply.
+
+    flat: (cls | r6 << 9, d32, lit32), (M,) int64 each. Returns (px2, w2,
+    exit2); the caller's full certificate decides whether they stand."""
+    nbk = m // b
+    base_f, d32, lit32 = flat
+    root1, val1, entry1, proot1 = extra1
+    ok = ids < nbk
+    idc = ids.clamp(max=nbk - 1)
+    keep = ids[ok]
+
+    def rows(x):
+        """(M,) -> (K, b): the window blocks' positions."""
+        return x.reshape(nbk, b)[idc]
+
+    base_g, d32_g, lit32_g, px_g = (rows(x) for x in (base_f, d32, lit32,
+                                                      px1))
+    cls_g, r6_g = base_g & 7, (base_g >> 9) & 63
+    starts_g = cls_g != 0
+    entry_h = _entry_hash(None if entry65 is None else entry65[0])
+    seed_h = torch.where(idc == 0, entry_h,
+                         w0i[(idc * b - 1).clamp(min=0)])
+    w1_g = torch.where(starts_g, _anchored_w_rows(cls_g, r6_g, d32_g, px_g,
+                                                  seed_h), 0)
+    root_g, val_g, proot_g, pval_g = block_maps(
+        (base_g | w1_g << 3).T.to(torch.int32).contiguous(),
+        to_i32(d32_g).T.contiguous(), to_i32(lit32_g).T.contiguous())
+    root2, val2 = root1.clone(), val1.clone()
+    root2[:, keep] = root_g[:, ok]
+    val2[:, keep] = val_g[:, ok]
+    entry2, exit2 = _compose_entry_states(root2, val2, entry65,
+                                          return_exit=True)
+    px2 = _apply_symbolic(proot1, _pos_major(px1, m, b),
+                          swar_sub(entry2, entry1)).T.reshape(nbk, b)
+    px2[keep] = _apply_symbolic(proot_g, pval_g, entry2[:, idc]).T[ok]
+    w2 = w0.clone().reshape(nbk, b)
+    w2[keep] = w1_g[ok]
+    return px2.reshape(m), w2.reshape(m), exit2
+
+
+def _decode_core(data: torch.Tensor, chunks_len, max_rounds: int = _MAX_ROUNDS,
+                 entry65=None, surgical: bool = True):
     """Full chunk-level decode to per-byte px values + bookkeeping.
-    data: (M,) uint8 with M a bucket size. Returns (px32 (M,) int64 u32,
-    starts, npix, pix_off, converged (bool), rounds (int))."""
+    data: (M,) uint8 with M a bucket size. `entry65` ((65,) int64 u32:
+    px + 64 slots, default the seed) is the incoming state of a chained
+    tile. Returns (px32 (M,) int64 u32, starts, npix, pix_off, converged
+    (bool), rounds (int), exit65 ((65,) int64 u32, valid only when
+    converged)). `surgical` allows the narrow second round; it engages
+    only when max_rounds > 1 and the stream has nbk >= 256 blocks."""
     m = data.shape[0]
     b = _scan_block_len(m)
+    nbk = m // b
     starts, cls, r6, d32, lit32, npix = _fields(data, chunks_len)
-    w0i, pix_off = _initial_w(cls, r6, d32, lit32, npix)
+    entry_px32 = None if entry65 is None else entry65[0]
+    w0i, pix_off = _initial_w(cls, r6, d32, lit32, npix, entry_px32)
     w0 = torch.where(starts, w0i, 0)
 
     # loop-invariant position-major planes, transposed once per decode
-    base_p = _pos_major((cls | (r6 << 9)).to(torch.int32), m, b)
-    d32_p = _pos_major(to_i32(d32), m, b)
-    lit32_p = _pos_major(to_i32(lit32), m, b)
+    base_f = cls | (r6 << 9)
+    planes = (_pos_major(base_f.to(torch.int32), m, b),
+              _pos_major(to_i32(d32), m, b), _pos_major(to_i32(lit32), m, b))
+
+    def mismatches(px, w):
+        """certificate: w == hash(px(w)) everywhere forces exactness"""
+        return torch.where(starts, _hash_packed(px), 0) != w
 
     def round_(w, prev_bad):
-        px = _resolve_p(base_p, d32_p, lit32_p, w, m, b)
-        # certificate: w == hash(px(w)) everywhere forces exactness
-        true_w = torch.where(starts, _hash_packed(px), 0)
-        bad = int((true_w != w).sum())  # the one host read per round
+        px, exit65, extra = _resolve_p(*planes, w, m, b, entry65)
+        mis = mismatches(px, w)
+        bad = int(mis.sum())  # the one host read per round
         # bail (-1) when the mismatch count stops shrinking: only
         # non-canonical streams stall now
         if bad > 0 and bad >= prev_bad:
             bad = -1
-        return px, bad
+        return px, exit65, bad, extra, mis
 
     # round 1 is peeled: the anchored rebuild runs only for streams that
     # need a second round
-    px, bad = round_(w0, 0x7FFFFFFF)
+    px, exit65, bad, extra, mis = round_(w0, 0x7FFFFFFF)
     rounds = 1
-    while bad > 0 and rounds < _MAX_ROUNDS:
-        w = torch.where(starts, _anchored_w(cls, r6, d32, px), 0)
-        px, bad = round_(w, bad)
+    if bad > 0 and surgical and max_rounds > 1 and nbk >= 256:
+        ids = _surgical_windows(mis.reshape(nbk, b).any(dim=1))
+        if ids is not None:
+            px, w, exit65 = _surgical_round((base_f, d32, lit32), px, w0,
+                                            w0i, extra, ids, m, b, entry65)
+            bad = int(mismatches(px, w).sum())
+            rounds = 2
+    del extra, mis
+    while bad > 0 and rounds < max_rounds:
+        w = torch.where(starts, _anchored_w(cls, r6, d32, px, entry_px32), 0)
+        px, exit65, bad, _, _ = round_(w, bad)
         rounds += 1
-    return px, starts, npix, pix_off, bad == 0, rounds
+    return px, starts, npix, pix_off, bad == 0, rounds, exit65
 
 
 #: offset of the tail slots of the dense records: past every pixel plane,
@@ -348,21 +489,25 @@ def _expand_packed(starts, px32, pix_off, n_px_cap: int,
 
 
 def _decode_device(data: torch.Tensor, chunks_len: int, n_px_cap: int,
-                   dense: bool = False):
+                   dense: bool = False, max_rounds: int = _MAX_ROUNDS,
+                   surgical: bool = True):
     """Device decode of one padded stream body. Returns (px32
     (n_px_cap,) int32, converged, rounds)."""
-    px, starts, _, pix_off, conv, rounds = _decode_core(data, chunks_len)
+    px, starts, _, pix_off, conv, rounds, _ = _decode_core(
+        data, chunks_len, max_rounds, surgical=surgical)
     return (_expand_packed(starts, px, pix_off, n_px_cap, dense=dense),
             conv, rounds)
 
 
 def decode_group(data: torch.Tensor, chunks_len, n_px_cap: int):
     """Decode same-bucket streams one after another (peak memory stays
-    at one stream's). data: (B, M) uint8; chunks_len: B ints. Returns
+    at one stream's), without the surgical round, as the JAX package's
+    batched decodes. data: (B, M) uint8; chunks_len: B ints. Returns
     (px32 (B, n_px_cap) int32, converged (B,) bool, rounds (B,) int)."""
     outs, convs, rounds = [], [], []
     for i in range(data.shape[0]):
-        out, conv, r = _decode_device(data[i], int(chunks_len[i]), n_px_cap)
+        out, conv, r = _decode_device(data[i], int(chunks_len[i]), n_px_cap,
+                                      surgical=False)
         outs.append(out)
         convs.append(conv)
         rounds.append(r)
@@ -376,40 +521,45 @@ def unpack_px32(px32: np.ndarray) -> np.ndarray:
         px32.shape + (4,))
 
 
-def decode(data: bytes, channels: int, device
+def decode(data: bytes, channels: int, device, config=None
            ) -> Tuple[np.ndarray, fmt.StreamDesc]:
     """Decode a QOI stream on `device`; pixel-identical to the reference
     decoder (qoi.h:488). A stream whose fixpoint does not converge takes
-    `_decode_ladder`."""
+    `_decode_ladder`. `config` (an EngineConfig) sets the fixpoint cap
+    and the shape-bucketing floor."""
     if channels not in (0, 3, 4):
         raise ValueError(f"channels must be 0, 3 or 4, got {channels}")
     desc = fmt.unpack_header(data)
     out_ch = channels if channels else desc.channels
+    max_rounds = config.decode_max_iters if config else _MAX_ROUNDS
+    floor = config.bucket_floor if config else 256
 
     chunks = np.frombuffer(data, dtype=np.uint8)[fmt.HEADER_SIZE:]
     chunks_len = len(data) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
-    padded = np.zeros((buckets.bucket_size_fine(len(chunks)),), np.uint8)
+    padded = np.zeros((buckets.bucket_size_fine(len(chunks), floor),),
+                      np.uint8)
     padded[: len(chunks)] = chunks
 
     px32, conv, _ = _decode_device(
         torch.from_numpy(padded).to(device), chunks_len,
-        buckets.bucket_size(desc.num_pixels))
+        buckets.bucket_size(desc.num_pixels, floor), max_rounds=max_rounds)
     if not conv:
-        return _decode_ladder(data, channels)
+        return _decode_ladder(data, channels, device)
     img = unpack_px32(px32[: desc.num_pixels].cpu().numpy())[:, :out_ch]
     return img.reshape(desc.height, desc.width, out_ch), desc
 
 
-def _decode_ladder(data: bytes, channels: int = 0):
+def _decode_ladder(data: bytes, channels: int, device):
     """Fallback for fixpoint non-convergence (non-canonical streams: INDEX
     reads of unwritten slots break the table invariant the anchored
-    rebuild relies on): the native C++ decoder (cpp/qoi_oracle.cpp).
-    Raises when it is not available: the sequential rung of the JAX
-    package is not ported yet."""
+    rebuild relies on): the native C++ decoder (cpp/qoi_oracle.cpp) when
+    it is built, else the sequential scan codec on `device`
+    (models/scan_codec.py, whose decode is one CUDA kernel on the card).
+    The JAX ladder tries its v1 decoder before the scan; v1 is not
+    ported, and the result is the same."""
     from .. import oracle
+    from . import scan_codec
 
-    if not oracle.available():
-        raise RuntimeError(
-            "stream did not converge on the device and the native decoder "
-            "(cpp/, built with make) is not available")
-    return oracle.decode(data, channels)
+    if oracle.available():
+        return oracle.decode(data, channels)
+    return scan_codec.decode(data, channels, device)

@@ -275,14 +275,16 @@ def force_rgba(pixels: np.ndarray, desc: fmt.StreamDesc) -> np.ndarray:
     return flat
 
 
-def encode(pixels: np.ndarray, desc: fmt.StreamDesc, device) -> bytes:
+def encode(pixels: np.ndarray, desc: fmt.StreamDesc, device,
+           config=None) -> bytes:
     """Encode one image on `device`; byte-identical to the reference
-    encoder (qoi.h:356). Pads to a power-of-two pixel bucket and fetches
-    only the stream's words."""
+    encoder (qoi.h:356). Pads to a power-of-two pixel bucket (at least
+    `config.bucket_floor`) and fetches only the stream's words."""
     desc.validate()
     px4 = force_rgba(pixels, desc)
     n = px4.shape[0]
-    padded = np.zeros((bucket_size(n), 4), np.uint8)
+    floor = config.bucket_floor if config else 256
+    padded = np.zeros((bucket_size(n, floor), 4), np.uint8)
     padded[:n] = px4
     words, total = encode_device_wordsum(
         torch.from_numpy(padded).to(device), n)

@@ -43,14 +43,24 @@ def _compose_maps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
-def chunk_starts(data: torch.Tensor, chunks_len) -> torch.Tensor:
-    """(M,) bool chunk-start mask over the byte stream. data: (M,) uint8
-    chunk bytes (may include the trailer and padding); positions >=
-    chunks_len are never marked, the reference's `p < chunks_len` read
-    guard (qoi.h:544)."""
+def chunk_starts_and_state(data: torch.Tensor, chunks_len):
+    """(starts, state_before) over the byte stream. data: (M,) uint8 chunk
+    bytes (may include the trailer and padding); positions >= chunks_len
+    are never marked, the reference's `p < chunks_len` read guard
+    (qoi.h:544).
+
+    Returns ((M,) bool starts, (M,) int8 state_before): how many bytes of
+    the current chunk still precede position i (0 = i starts a chunk).
+    The streamed decoder ends its tiles at chunk boundaries with it."""
     trans = _pack_map(chunk_byte_len(data) - 1)
     after = assoc_scan(_compose_maps, trans)
     # state BEFORE byte i = state after byte i-1 (0 before byte 0)
-    state_before = torch.cat([after.new_zeros(1), (after & 7)[:-1]])
+    state_before = torch.cat([after.new_zeros(1),
+                              (after & 7)[:-1]]).to(torch.int8)
     io = torch.arange(data.shape[0], device=data.device)
-    return (state_before == 0) & (io < chunks_len)
+    return (state_before == 0) & (io < chunks_len), state_before
+
+
+def chunk_starts(data: torch.Tensor, chunks_len) -> torch.Tensor:
+    """(M,) bool chunk-start mask (see chunk_starts_and_state)."""
+    return chunk_starts_and_state(data, chunks_len)[0]

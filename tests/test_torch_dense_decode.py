@@ -42,8 +42,8 @@ def cores():
         pad = np.zeros(max(buckets.bucket_size(len(raw)), 4096), np.uint8)
         pad[: len(raw)] = raw
         clen = len(s) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
-        px, starts, _, pix_off, conv, _ = td3._decode_core(to_torch(pad),
-                                                           clen)
+        px, starts, _, pix_off, conv, _, _ = td3._decode_core(
+            to_torch(pad), clen)
         assert conv
         out[name] = dict(img=img, pad=pad, clen=clen,
                          px=as_u32(px).astype(np.uint32),

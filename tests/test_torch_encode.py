@@ -222,7 +222,15 @@ def test_encode_matches_oracle(name, ch):
 
 
 def test_encode_above_stream_threshold_raises():
+    """Above STREAM_THRESHOLD_PX the facade streams tile by tile
+    (tests/test_torch_streamed.py); the streamed encoder still refuses a
+    pixel buffer that does not match the descriptor, and a descriptor
+    past the format's cap."""
     desc = fmt.StreamDesc(8192, 4096, 4)
-    with pytest.raises(NotImplementedError):
+    assert desc.num_pixels > qoi_tpu_torch.STREAM_THRESHOLD_PX
+    with pytest.raises(ValueError, match="pixel count"):
         qoi_tpu_torch.encode(np.zeros((1, 1, 4), np.uint8), desc,
                              device="cpu")
+    with pytest.raises(ValueError, match="reference pixel-count guard"):
+        qoi_tpu_torch.encode(np.zeros((1, 1, 4), np.uint8),
+                             fmt.StreamDesc(25600, 15625, 4), device="cpu")

@@ -197,8 +197,8 @@ def _stream_records(dense):
     raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
     pad = np.zeros(max(buckets.bucket_size(len(raw)), 4096), np.uint8)
     pad[: len(raw)] = raw
-    px, starts, _, pix_off, conv, _ = td3._decode_core(to_torch(pad),
-                                                       len(stream) - 22)
+    px, starts, _, pix_off, conv, _, _ = td3._decode_core(to_torch(pad),
+                                                          len(stream) - 22)
     assert conv
     if dense:
         off, px32 = td3._compact_chunks(starts, pix_off, px)

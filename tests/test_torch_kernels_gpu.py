@@ -20,8 +20,9 @@ from qoi_tpu_torch.kernels import block_maps as kbm
 from qoi_tpu_torch.kernels import encode_stage as kstage
 from qoi_tpu_torch.kernels import expand as kexp
 from qoi_tpu_torch.kernels import pack as kpack
+from qoi_tpu_torch.kernels import scan_codec as kscan
 from qoi_tpu_torch.kernels import slide as kslide
-from qoi_tpu_torch.models import buckets, decode_v3, pipeline
+from qoi_tpu_torch.models import buckets, decode_v3, pipeline, scan_codec
 from qoi_tpu_torch.ops import compact
 from qoi_tpu_torch.utils import testimages
 
@@ -120,6 +121,16 @@ def test_expand_kernel_matches_twin(dev, m, cap, seed, max_run, first):
           kexp.expand_px_xla(pix_off, px, cap))
 
 
+@pytest.mark.parametrize("seed32", [0, 0x01020304, 0xFFFFFFFF])
+def test_expand_kernel_chained_seed(dev, seed32):
+    """A streamed tile's expand takes its entry px as the seed: pixels
+    before the first chunk keep it."""
+    pix_off, px = (t.to(dev) for t in _expand_records(5000, 8, 62, 300))
+    for cap in (4096, 400000):
+        _same(kexp.expand_px(pix_off, px, cap, seed32=seed32),
+              kexp.expand_px_xla(pix_off, px, cap, seed32=seed32))
+
+
 def test_expand_kernel_empty_stream(dev):
     z = torch.zeros(0, dtype=torch.int32, device=dev)
     _same(kexp.expand_px(z, z, 100), kexp.expand_px_xla(z, z, 100))
@@ -165,6 +176,75 @@ def test_block_maps_kernel_matches_twin(dev, case, b, nb):
     for got, want in zip(kbm.block_maps(*planes),
                          kbm.block_maps_plain(*planes)):
         _same(got, want)
+
+
+def test_block_maps_kernel_surgical_shape(dev):
+    """The surgical round's narrow pass 1: 64 block lanes of 8192
+    positions."""
+    rng = np.random.default_rng(9)
+    meta = (rng.integers(0, 5, (8192, 64))
+            | rng.integers(0, 64, (8192, 64)) << 3).astype(np.int32)
+    d32, lit32 = (rng.integers(-2**31, 2**31, (8192, 64)).astype(np.int32)
+                  for _ in range(2))
+    planes = [torch.from_numpy(x).to(dev) for x in (meta, d32, lit32)]
+    for got, want in zip(kbm.block_maps(*planes),
+                         kbm.block_maps_plain(*planes)):
+        _same(got, want)
+
+
+def _random_state(seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-2**31, 2**31, 65).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["mixed", "adversarial", "truncated",
+                                  "noise_rgb"])
+def test_decode_scan_kernel_matches_twin(dev, case):
+    """4096 pixels from a random entry state (a chained tile's)."""
+    if case == "adversarial":
+        body = b"\x05" * 4096
+    else:
+        img = {"mixed": lambda: testimages.mixed(64, 64, 4),
+               "truncated": lambda: testimages.photo(64, 64, 4),
+               "noise_rgb": lambda: testimages.noise(64, 64, 3, seed=2)}[
+                   case]()
+        h, w, ch = img.shape
+        body = oracle.encode(img, fmt.StreamDesc(w, h, ch))[
+            fmt.HEADER_SIZE:]
+        if case == "truncated":
+            body = body[: len(body) // 3]
+    data = torch.frombuffer(bytearray(body + fmt.TRAILER), dtype=torch.uint8)
+    state = _random_state(len(body))
+    got = kscan.decode_scan(data.to(dev), 4096, len(body), state.to(dev))
+    want = kscan.decode_scan_plain(data, 4096, len(body), state)
+    for g, w_ in zip(got, want):
+        _same(g, w_)
+
+
+@pytest.mark.parametrize("case", ["mixed", "flat", "noise", "runs"])
+def test_encode_scan_kernel_matches_twin(dev, case):
+    img = {"mixed": lambda: testimages.mixed(64, 64, 4),
+           "flat": lambda: testimages.flat(64, 64, 4),
+           "noise": lambda: testimages.noise(64, 64, 4, seed=3),
+           "runs": lambda: testimages.runs_with_caps(256, 16, 4)}[case]()
+    px32 = torch.from_numpy(np.ascontiguousarray(img).reshape(-1, 4).view(
+        np.int32).reshape(-1))
+    got = kscan.encode_scan(px32.to(dev))
+    want = kscan.encode_scan_plain(px32)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_scan_codec_on_card_matches_oracle(dev, ch):
+    for name, img in testimages.edge_case_suite(ch).items():
+        h, w = img.shape[:2]
+        desc = fmt.StreamDesc(w, h, ch)
+        want = oracle.encode(img, desc)
+        assert scan_codec.encode(img, desc, dev) == want, name
+        got, _ = scan_codec.decode(want, 0, dev)
+        np.testing.assert_array_equal(got, img, name)
 
 
 def _slide2_events(nseg, sw, p, seed):
@@ -379,10 +459,14 @@ def test_wrappers_count_launches(dev):
     kpack.place_words(z[0], z[0], z[0], 4)
     kstage.encode_stage_pallas(
         torch.zeros((1024, 4), dtype=torch.uint8, device=dev), 7)
+    kscan.encode_scan(z[0])
+    kscan.decode_scan(z[0].view(torch.uint8), 4, 4,
+                      torch.zeros(65, dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
                                "block_maps": 1, "slide_val2": 1,
-                               "place_words": 1, "encode_stage": 1}
+                               "place_words": 1, "encode_stage": 1,
+                               "encode_scan": 1, "decode_scan": 1}
 
 
 @pytest.mark.parametrize("ch", [3, 4])

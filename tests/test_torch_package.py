@@ -14,10 +14,12 @@ import torch
 import jax.numpy as jnp
 
 import qoi_tpu_torch
+from qoi_tpu import config as jconfig
 from qoi_tpu import format as jfmt
 from qoi_tpu import oracle as joracle
 from qoi_tpu.models import pipeline as jpipe
 from qoi_tpu.utils import testimages as jtestimages
+from qoi_tpu_torch import config as tconfig
 from qoi_tpu_torch import format as tfmt
 from qoi_tpu_torch import oracle as toracle
 from qoi_tpu_torch.kernels import _build
@@ -25,6 +27,7 @@ from qoi_tpu_torch.kernels import block_maps as tbm
 from qoi_tpu_torch.kernels import encode_stage as tstage
 from qoi_tpu_torch.kernels import expand as texpand
 from qoi_tpu_torch.kernels import pack as tpack
+from qoi_tpu_torch.kernels import scan_codec as tscan
 from qoi_tpu_torch.kernels import slide as tslide
 from qoi_tpu_torch.models import pipeline as tpipe
 from qoi_tpu_torch.utils import testimages
@@ -64,11 +67,12 @@ sys.modules["jax"] = None
 sys.modules["qoi_tpu"] = None
 import numpy as np
 import qoi_tpu_torch
-from qoi_tpu_torch import format, oracle
-from qoi_tpu_torch.models import pipeline, decode_v3, buckets
+from qoi_tpu_torch import config, format, oracle
+from qoi_tpu_torch.models import (pipeline, decode_v3, buckets, streamed,
+                                  scan_codec)
 from qoi_tpu_torch.ops import scans, table, compact, fsm
 from qoi_tpu_torch.kernels import (slide, expand, block_maps, pack,
-                                   encode_stage, _build)
+                                   encode_stage, scan_codec, _build)
 from qoi_tpu_torch.utils import testimages
 img = testimages.mixed(23, 9, 4)
 s = qoi_tpu_torch.encode(img, device="cpu")
@@ -100,7 +104,8 @@ def test_cuda_default_raises_without_a_card():
 
 @pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps",
                                     "slide_val2", "place_words",
-                                    "encode_stage"])
+                                    "encode_stage", "encode_scan",
+                                    "decode_scan"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises: here
     a 'meta' tensor must raise instead of taking the plain twin."""
@@ -116,6 +121,12 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
             tslide.slide_val2(z, z, z)
         elif kernel == "place_words":
             tpack.place_words(z[0], z[0], z[0], 16)
+        elif kernel == "encode_scan":
+            tscan.encode_scan(z[0])
+        elif kernel == "decode_scan":
+            tscan.decode_scan(z[0].view(torch.uint8), 4, 4,
+                              torch.zeros(65, dtype=torch.int32,
+                                          device="meta"))
         else:
             tstage.encode_stage_pallas(
                 torch.zeros((1024, 4), dtype=torch.uint8, device="meta"), 9)
@@ -137,14 +148,38 @@ def test_wrappers_check_shapes():
         tstage.encode_stage_pallas(torch.zeros((1000, 4), dtype=torch.uint8), 9)
     with pytest.raises(ValueError):     # not (N, 4)
         tstage.encode_stage_pallas(torch.zeros((1024, 3), dtype=torch.uint8), 9)
+    with pytest.raises(ValueError):
+        tscan.encode_scan(z)
+    with pytest.raises(ValueError):
+        tscan.decode_scan(z[0].view(torch.uint8), 4, 4, z[0])
 
 
 def test_launch_counts_start_at_zero_and_reset():
     _build.reset_launches()
     assert set(_build.launches) == {"slide_val", "expand_px", "block_maps",
                                     "slide_val2", "place_words",
-                                    "encode_stage"}
+                                    "encode_stage", "encode_scan",
+                                    "decode_scan"}
     assert all(v == 0 for v in _build.launches.values())
+
+
+def test_config_copy_matches_the_original():
+    """The port's config.py: the same fields, defaults and validation."""
+    fields = [(f.name, f.default) for f in
+              tconfig.EngineConfig.__dataclass_fields__.values()]
+    assert fields == [(f.name, f.default) for f in
+                      jconfig.EngineConfig.__dataclass_fields__.values()]
+    assert tconfig.DEFAULT == tconfig.EngineConfig()
+    assert tconfig.DEFAULT.stream_tile_px == 1 << 22
+    assert tconfig.DEFAULT.decode_max_iters == 12
+    assert tconfig.DEFAULT.bucket_floor == 256
+    for bad in (dict(engine="gpu"), dict(table_block=0),
+                dict(table_block=128), dict(bucket_floor=0),
+                dict(stream_tile_px=1), dict(mesh=(0, 2))):
+        for mod in (tconfig, jconfig):
+            with pytest.raises(ValueError):
+                mod.EngineConfig(**bad).validate()
+    tconfig.EngineConfig(mesh=(2, 4), engine="scan").validate()
 
 
 def test_format_copy_matches_the_original():
