@@ -9,9 +9,12 @@ It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
 in parallel), holds each of the eight kernels against its plain PyTorch
 twin (results must be exactly equal): the six parallel ones at the
 shapes their paths give them at 4K, the two sequential scans at 65,536
-pixels from a random entry state, and decode_scan also on a whole 4 MiB
-streamed tile from its real entry state. Then it drives five paths through the port's public functions,
-each with the launch counts set to 0 just before it and read just after:
+pixels from a random entry state. decode_scan also runs on a whole 4 MiB
+streamed tile from its real entry state, where its pixels must equal the
+source frame's and the fixpoint's and its exit state the one those pixels
+imply. Then it drives five paths through the port's public functions,
+each with the launch counts set to 0 just before it and read just
+after:
 
   1. the main path: encode 4 RGBA `mixed` 4K frames (seeds 3..6) and 1
      RGB `photo` 4K frame (3 times) with qoi_tpu_torch.encode, each
@@ -35,9 +38,10 @@ each with the launch counts set to 0 just before it and read just after:
      stream and a mixed frame, against the oracle;
 
 and fails unless every kernel of a path was launched in that path's run.
-Earlier lines report the card (name and power limit from nvidia-smi), the
-build, each kernel's time beside its twin's, its bound and, for the
-placement, the time of one PyTorch index_add_ computing the same words;
+Earlier lines report the card (name and power limit from nvidia-smi), each
+phase's wall seconds, the build, each kernel's time beside its twin's, its
+bound and, for the placement, the time of one PyTorch index_add_ computing
+the same words;
 the per-phase times of one frame of each side path and of the main
 decode (one photo and one mixed stream, every step of _decode_core, the
 surgical round beside a full second round, and the expand); and the
@@ -132,6 +136,15 @@ def main() -> int:
     from qoi_tpu_torch.ops import compact
     from qoi_tpu_torch.utils import testimages
 
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name):
+        """Report the wall seconds since the previous phase ended."""
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase[0]:.1f} s wall")
+        t_phase[0] = now
+
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -151,6 +164,7 @@ def main() -> int:
     for line in so.with_suffix(".log").read_text().splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
+    phase_done("card and build")
 
     desc4 = fmt.StreamDesc(W, H, 4)
     desc3 = fmt.StreamDesc(W, H, 3)
@@ -165,6 +179,7 @@ def main() -> int:
     photo_rgb_stream = oracle.encode(photo_rgb, desc3)
     log(f"inputs: {2 * NFRAMES + 1} 4K frames + oracle streams in "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_done("4K inputs")
 
     def px4_of(frame, desc):
         px4 = np.zeros((npc, 4), np.uint8)
@@ -217,6 +232,7 @@ def main() -> int:
         cuda_ms(lambda: kslide.slide_val_plain(val, aux), 3),
         12 * val.numel(), 4 * val.numel())
     del val, aux
+    phase_done("slide_val vs twin")
 
     # B and C: the decode intermediates of a 4K mixed stream
     data, clen = padded_body(mixed_streams[0])
@@ -243,6 +259,7 @@ def main() -> int:
         err, cuda_ms(lambda: kbm.block_maps(meta, d32_p, lit32_p), 5),
         plain_ms, 20 * meta.numel() + 8 * 65 * nb, 20 * meta.numel())
     del meta, d32_p, lit32_p
+    phase_done("block_maps vs twin")
 
     px, starts, _, pix_off, conv, _, _ = decode_v3._decode_core(data, clen)
     check(conv, "4K mixed stream did not converge for the expand input")
@@ -256,6 +273,7 @@ def main() -> int:
         cuda_ms(lambda: kexp.expand_px_xla(pix_off32, px32, npc), 5),
         8 * m + 4 * npc, 6 * m + 2 * npc)
     del pix_off32, px32
+    phase_done("expand_px vs twin")
 
     # D: the two-plane rows _compact_chunks slides, same stream
     off_r, px_r, aux2, _, _ = decode_v3._chunk_events(starts, pix_off, px)
@@ -271,6 +289,7 @@ def main() -> int:
         cuda_ms(lambda: kslide.slide_val2_plain(off_r, px_r, aux2), 3),
         20 * off_r.numel(), 6 * off_r.numel())
     del off_r, px_r, aux2
+    phase_done("slide_val2 vs twin")
 
     # P: the word/contribution planes of a 4K mixed frame
     chb = pipeline.encode_stage_chunks(px4_of(mixed[0], desc4), n,
@@ -299,6 +318,7 @@ def main() -> int:
         cuda_ms(lambda: kpack.place_words_plain(*planes, w_cap), 5),
         12 * r + 4 * w_cap, 8 * r, cuda_ms(library_place, 20))
     del planes, idx, vals
+    phase_done("place_words vs twin and index_add_")
 
     # S: fused staging of a 4K mixed RGBA frame and a 4K RGB photo frame
     for label, frame, desc in (("mixed RGBA", mixed[0], desc4),
@@ -317,6 +337,7 @@ def main() -> int:
                 cuda_ms(lambda: kstage.encode_stage_plain(px4, n), 3),
                 14 * npc, 80 * npc)
         del px4
+    phase_done("encode_stage vs twin")
 
     # the streamed path's inputs: two 8K frames and the adversarial stream
     t0 = time.perf_counter()
@@ -335,69 +356,81 @@ def main() -> int:
     log(f"streamed inputs: 2 {W8}x{H8} frames + oracle streams, the "
         f"{desc_adv.width}x{desc_adv.height} adversarial stream, in "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_done("streamed inputs")
 
-
-    # Q: the sequential scans. decode_scan at SCAN_PX pixels from a random
-    # entry state, on the adversarial bytes (one INDEX byte a pixel, the
-    # repair path's input) and on a 4K mixed stream's first bytes; then at
-    # the streamed path's shape: the second 4 MiB tile of the 8K mixed
-    # stream from its real entry state (the first tile's exit), held
-    # against its twin and the fixpoint's pixels of that tile, and timed.
-    # encode_scan on a 4K mixed frame's first SCAN_PX pixels (the twins
-    # walk in Python; scan_codec.encode runs it at 4K, held to the oracle).
+    # Q: the sequential scans. Both kernels against their twins at SCAN_PX
+    # pixels from a random entry state: decode_scan on the adversarial
+    # bytes (one INDEX byte a pixel, the repair path's input) and on a 4K
+    # mixed stream's first bytes, encode_scan on a 4K mixed frame's first
+    # SCAN_PX pixels (the twins walk in Python). Then decode_scan at the
+    # streamed path's shape: tile 2 of the 8K mixed stream (4 MiB) from
+    # tile 1's real exit state, held exactly to the source frame's pixels
+    # of that tile and to the fixpoint's, its exit state to the one those
+    # pixels imply (kernels/scan_codec.exit_state_of), and timed there.
     rng = np.random.default_rng(5)
     state = torch.from_numpy(
         rng.integers(-2**31, 2**31, 65).astype(np.int32)).to(dev)
     adv_bytes = torch.full((SCAN_PX + 8,), 5, dtype=torch.uint8, device=dev)
     mix_bytes = torch.from_numpy(np.frombuffer(mixed_streams[0], np.uint8)[
         fmt.HEADER_SIZE:fmt.HEADER_SIZE + 8 * SCAN_PX].copy()).to(dev)
-    errs = []
+    errs, small_ms = [], {}
     for label, body in (("mixed", mix_bytes), ("adversarial", adv_bytes)):
         got = kscan.decode_scan(body, SCAN_PX, body.numel(), state)
-        want = kscan.decode_scan_plain(body.cpu(), SCAN_PX, body.numel(),
-                                       state.cpu())
+        want, t = sync_ms(lambda: kscan.decode_scan_plain(
+            body.cpu(), SCAN_PX, body.numel(), state.cpu()))
         errs += [compare(f"decode_scan {label} [{i}]", g.cpu(), w_)
                  for i, (g, w_) in enumerate(zip(got, want))]
+        small_ms[label] = (cuda_ms(lambda: kscan.decode_scan(
+            body, SCAN_PX, body.numel(), state), 20), t)
     del adv_bytes, mix_bytes
-    stream8 = big[0][3]
+    stream8, frame8 = big[0][3], big[0][1]
     data8 = torch.from_numpy(np.frombuffer(stream8, np.uint8)[
         fmt.HEADER_SIZE:fmt.HEADER_SIZE + 2 * TILE].copy()).to(dev)
     clen8 = len(stream8) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
-    _, used1, entry = streamed._dec_tile_at(
+    fix1, used1, entry = streamed._dec_tile_at(
         data8, 0, clen8, streamed._seed65(dev), TILE, TILE, 12, 1 << 30)
     fix2, used2, _ = streamed._dec_tile_at(data8, used1, clen8, entry, TILE,
                                            TILE, 12, 1 << 30)
-    body, state, n2 = data8[used1:used1 + TILE], to_i32(entry), fix2.numel()
+    n1, n2 = fix1.numel(), fix2.numel()
+    body, state = data8[used1:used1 + TILE], to_i32(entry)
     got = kscan.decode_scan(body, n2, used2, state)
-    want, plain_ms = sync_ms(lambda: kscan.decode_scan_plain(
-        body.cpu(), n2, used2, state.cpu()))
-    errs += [compare(f"decode_scan 8K tile 2 [{i}]", g.cpu(), w_)
-             for i, (g, w_) in enumerate(zip(got, want))]
+    errs.append(compare("decode_scan 8K tile 2 vs the source pixels", got[0],
+                        want_px(frame8)[n1:n1 + n2]))
     compare("decode_scan 8K tile 2 vs the fixpoint", got[0], fix2)
-    ms = cuda_ms(lambda: kscan.decode_scan(body, n2, used2, state), 3)
-    log(f"decode_scan: {SCAN_PX} px from a random entry state (adversarial "
-        f"and mixed), and tile 2 of the 8K mixed stream ({used2} B, {n2} "
-        f"px) from tile 1's exit state, equal to its twin and to the "
-        f"fixpoint; tile {n2 / 1e3 / ms:.3f} Mpx/s (plain: one run, host "
-        "clock)")
+    errs.append(compare("decode_scan 8K tile 2 exit state vs its pixels'",
+                        got[1], kscan.exit_state_of(got[0], state)))
+    ms = cuda_ms(lambda: kscan.decode_scan(body, n2, used2, state), 10)
+    log("decode_scan: " + "; ".join(
+        f"{SCAN_PX} px {k} from a random entry state equal to its twin, "
+        f"{v[0]:.4f} ms ({SCAN_PX / 1e3 / v[0]:.3f} Mpx/s), twin {v[1]:.1f} "
+        "ms (one run, host clock)" for k, v in small_ms.items())
+        + f"; tile 2 of the 8K mixed stream ({used2} B, {n2} px) from tile "
+        f"1's exit state equal to the source pixels and the fixpoint, exit "
+        f"state equal to its pixels'; {ms:.4f} ms, {n2 / 1e3 / ms:.3f} "
+        "Mpx/s (the row's plain time: its twin on the mixed SCAN_PX)")
     # per pixel 4 bytes written, each byte read once; ~30 integer
-    # operations a step
+    # operations a pixel
     row("decode_scan", "scan_codec.cu", "qoi_tpu/models/scan_codec.py:147",
-        max(errs), ms, plain_ms, used2 + 4 * n2 + 2 * 65 * 4, 30 * n2)
-    del data8, body, got, want, fix2
+        max(errs), ms, small_ms["mixed"][1], used2 + 4 * n2 + 2 * 65 * 4,
+        30 * n2)
+    del data8, body, got, fix1, fix2
     px32 = torch.from_numpy(np.ascontiguousarray(mixed[0]).reshape(-1, 4)[
         :SCAN_PX].view(np.int32).reshape(-1).copy()).to(dev)
     got = kscan.encode_scan(px32)
     want, plain_ms = sync_ms(lambda: kscan.encode_scan_plain(px32.cpu()))
     err = max(compare(f"encode_scan [{i}]", g.cpu(), w_)
               for i, (g, w_) in enumerate(zip(got, want)))
-    ms = cuda_ms(lambda: kscan.encode_scan(px32), 5)
-    log(f"encode_scan: {SCAN_PX} px of a 4K mixed frame; "
-        f"{SCAN_PX / 1e3 / ms:.3f} Mpx/s (plain: one run, host clock)")
+    ms = cuda_ms(lambda: kscan.encode_scan(px32), 20)
+    px32_4k = want_px(mixed[0])
+    ms_4k = cuda_ms(lambda: kscan.encode_scan(px32_4k), 5)
+    log(f"encode_scan: {SCAN_PX} px of a 4K mixed frame equal to its twin; "
+        f"{SCAN_PX / 1e3 / ms:.3f} Mpx/s (plain: one run, host clock); the "
+        f"whole frame {ms_4k:.4f} ms, {n / 1e3 / ms_4k:.3f} Mpx/s")
     # per pixel: 4 bytes read, 6 + 4 written; ~60 integer operations
     row("encode_scan", "scan_codec.cu", "qoi_tpu/models/scan_codec.py:75",
         err, ms, plain_ms, 14 * SCAN_PX, 60 * SCAN_PX)
-    del px32
+    del px32, px32_4k
+    phase_done("sequential scans vs twins, tile and exit-state checks")
 
     # ---- per-phase times of one frame of each new path ----------------
     px4 = px4_of(mixed[1], desc4)
@@ -437,6 +470,7 @@ def main() -> int:
             f"{t_core:.3f}, _compact_chunks {t_cc:.3f} (events {t_ev:.3f}, "
             f"slide_val2 {t_sl:.3f}), expand {t_ex:.3f}")
         del data
+    phase_done("side-path phases")
 
     # ---- per-phase times of the main decode ----------------------------
     def decode_phases(data, clen):
@@ -538,6 +572,7 @@ def main() -> int:
             f"{t_all:.3f} ({r_s} rounds), with surgical=False {t_full:.3f} "
             f"({r_f} rounds)")
         del data, out
+    phase_done("main decode phases")
 
     # ---- the paths, each counted on its own ---------------------------
     counts_total = {k: 0 for k in _build.launches}
@@ -560,6 +595,7 @@ def main() -> int:
                   f"kernel {name} never launched by the {label} run")
         for k, v in counts.items():
             counts_total[k] += v
+        phase_done(f"{label} run")
 
     def main_path():
         # encode: the RGBA mixed + 1 RGB photo (3 times, its one-frame time
@@ -765,12 +801,14 @@ def main() -> int:
     counted("dense-decode", ("slide_val2", "block_maps", "expand_px"),
             dense_path)
     counted("streamed", ("slide_val", "block_maps", "expand_px",
-                         "decode_scan"), streamed_path)
+                         "decode_scan", "encode_scan"), streamed_path)
     log(f"launches over the five counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]
 
+    log(f"smoke total: {time.perf_counter() - t_start:.1f} s wall (the "
+        "interpreter's start and imports before it not included)")
     log("card (nvidia-smi name, power.limit):")
     log(smi.splitlines()[0])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

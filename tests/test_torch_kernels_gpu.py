@@ -25,6 +25,8 @@ from qoi_tpu_torch.kernels import slide as kslide
 from qoi_tpu_torch.models import buckets, decode_v3, pipeline, scan_codec
 from qoi_tpu_torch.ops import compact
 from qoi_tpu_torch.utils import testimages
+from scan_cases import (DECODE_CASES, ENCODE_CASES, decode_case,
+                        encode_case, random_state)
 
 pytestmark = pytest.mark.gpu
 
@@ -234,6 +236,85 @@ def test_encode_scan_kernel_matches_twin(dev, case):
     torch.cuda.synchronize()
     for g, w_ in zip(got, want):
         assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_scan_kernel_design_cases(dev, case, offset):
+    """The design tests' cases (tests/test_torch_scan_designs.py) from a
+    random entry state; `offset` starts the bytes 5 past a 16-byte
+    boundary, so the producer stages from the aligned base below them."""
+    data, n_px, clen = decode_case(case)
+    buf = torch.frombuffer(bytearray(b"\0" * offset + data),
+                           dtype=torch.uint8)
+    state = torch.from_numpy(random_state(n_px + offset))
+    got = kscan.decode_scan(buf.to(dev)[offset:], n_px, clen, state.to(dev))
+    want = kscan.decode_scan_plain(buf[offset:], n_px, clen, state)
+    for g, w_ in zip(got, want):
+        _same(g, w_)
+
+
+def test_decode_scan_kernel_empty_stream(dev):
+    state = torch.from_numpy(random_state(1))
+    got = kscan.decode_scan(torch.zeros(0, dtype=torch.uint8, device=dev), 9,
+                            0, state.to(dev))
+    want = kscan.decode_scan_plain(torch.zeros(0, dtype=torch.uint8), 9, 0,
+                                   state)
+    for g, w_ in zip(got, want):
+        _same(g, w_)
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES + ["random_3_groups"])
+def test_encode_scan_kernel_design_cases(dev, case):
+    """The design tests' cases, and 3 groups and 17 pixels of random
+    pixels drawn from 5 colours (runs, hits and misses across groups)."""
+    if case == "random_3_groups":
+        rng = np.random.default_rng(8)
+        colours = rng.integers(0, 2**32, 5, dtype=np.uint64)
+        px = colours[rng.integers(0, 5, 3 * 1024 + 17)].astype(np.uint32)
+    else:
+        px = encode_case(case)
+    px32 = torch.from_numpy(px.view(np.int32))
+    got = kscan.encode_scan(px32.to(dev))
+    want = kscan.encode_scan_plain(px32)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_)
+
+
+def test_decode_scan_kernel_on_a_full_streamed_tile(dev):
+    """Tile 2 of the 8K mixed stream (4 MiB of bytes) from tile 1's exit
+    state: the kernel's pixels equal the source frame's and the
+    fixpoint's, and its exit state the one those pixels imply."""
+    from qoi_tpu_torch.models import streamed
+    img = testimages.mixed(7680, 4320, 4, seed=3)
+    stream = oracle.encode(img, fmt.StreamDesc(7680, 4320, 4))
+    tile = 1 << 22
+    data = torch.frombuffer(bytearray(stream[fmt.HEADER_SIZE:fmt.HEADER_SIZE
+                                             + 2 * tile]),
+                            dtype=torch.uint8).to(dev)
+    clen = len(stream) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
+    fix1, used1, entry = streamed._dec_tile_at(
+        data, 0, clen, streamed._seed65(dev), tile, tile, 12, 1 << 30)
+    fix2, used2, _ = streamed._dec_tile_at(data, used1, clen, entry, tile,
+                                           tile, 12, 1 << 30)
+    n1, n2 = fix1.numel(), fix2.numel()
+    entry = to_i32(entry)
+    px, exit65 = kscan.decode_scan(data[used1:used1 + tile], n2, used2,
+                                   entry)
+    src = torch.from_numpy(np.ascontiguousarray(img).reshape(-1, 4).view(
+        np.int32).reshape(-1)[n1:n1 + n2].copy())
+    _same(px, src)
+    _same(px, fix2)
+    _same(exit65, kscan.exit_state_of(px, entry))
+
+
+def test_scan_codec_encode_4k_matches_oracle(dev):
+    img = testimages.mixed(3840, 2160, 4, seed=3)
+    desc = fmt.StreamDesc(3840, 2160, 4)
+    want = oracle.encode(img, desc)
+    assert scan_codec.encode(img, desc, dev) == want
+    np.testing.assert_array_equal(scan_codec.decode(want, 0, dev)[0], img)
 
 
 @pytest.mark.parametrize("ch", [3, 4])
