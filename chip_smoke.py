@@ -12,7 +12,7 @@ shapes their paths give them at 4K, the two sequential scans at 65,536
 pixels from a random entry state. decode_scan also runs on a whole 4 MiB
 streamed tile from its real entry state, where its pixels must equal the
 source frame's and the fixpoint's and its exit state the one those pixels
-imply. Then it drives five paths through the port's public functions,
+imply. Then it drives six paths through the port's public functions,
 each with the launch counts set to 0 just before it and read just
 after:
 
@@ -36,6 +36,18 @@ after:
      through the facade, whose tiles the decode_scan kernel repairs; and
      the sequential codec (models/scan_codec) at 4K on the adversarial
      stream and a mixed frame, against the oracle;
+  6. the user surfaces, on the 4K frames and oracle streams above, files
+     in a temporary directory: models.batch.encode_batch on the 4 mixed
+     and the RGB photo frame (byte-identical) and decode_batch on the 4
+     photo, 4 mixed, the adversarial and a corrupted-magic stream
+     (pixel-identical, the adversarial through the ladder, the corrupted
+     one an error), io.write/read with EngineConfig(verify=True), the
+     converter CLI in process and as `python3 -m qoi_tpu_torch.cli` in a
+     subprocess (started while the streamed inputs are prepared, so its
+     interpreter and CUDA start-up overlap them), the facade with
+     engine="scan" and engine="oracle", corpus.run_job over two .qoi
+     streams with the oracle gate, and bench.main on the small synthetic
+     suite;
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
@@ -44,17 +56,24 @@ bound and, for the placement, the time of one PyTorch index_add_ computing
 the same words;
 the per-phase times of one frame of each side path and of the main
 decode (one photo and one mixed stream, every step of _decode_core, the
-surgical round beside a full second round, and the expand); and the
-rates, per-tile times and peak device memory of the streamed path. One
+surgical round beside a full second round, and the expand); the
+rates, per-tile times and peak device memory of the streamed path; and
+the user surfaces' rates beside the facade loop's on the same frames,
+the CLI subprocess's wall seconds and the corpus summary. One
 JSON line lists the kernels. The last line is the JSON result object.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -339,6 +358,26 @@ def main() -> int:
         del px4
     phase_done("encode_stage vs twin")
 
+    # the CLI subprocess of path 6 starts now: its interpreter and CUDA
+    # start-up overlap the host's preparation of the streamed inputs, and
+    # it has ended before any later timing (the library is built)
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = pathlib.Path(tmp_ctx.name)
+    (tmp / "in.qoi").write_bytes(mixed_streams[0])
+    cli_sub = {}
+
+    def run_cli_subprocess():
+        t0 = time.perf_counter()
+        cli_sub["res"] = subprocess.run(
+            [sys.executable, "-m", "qoi_tpu_torch.cli", str(tmp / "in.qoi"),
+             str(tmp / "sub.qoi"), "--verify"],
+            cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=300)
+        cli_sub["s"] = time.perf_counter() - t0
+
+    cli_thread = threading.Thread(target=run_cli_subprocess)
+    cli_thread.start()
+
     # the streamed path's inputs: two 8K frames and the adversarial stream
     t0 = time.perf_counter()
     desc8 = (fmt.StreamDesc(W8, H8, 4), fmt.StreamDesc(W8, H8, 3))
@@ -597,6 +636,9 @@ def main() -> int:
             counts_total[k] += v
         phase_done(f"{label} run")
 
+    #: seconds of the main path's facade calls, for path 6's comparison
+    facade_s = {"encode": 0.0, "decode": 0.0}
+
     def main_path():
         # encode: the RGBA mixed + 1 RGB photo (3 times, its one-frame time
         # spreads widely), byte-identical to the oracle
@@ -610,6 +652,7 @@ def main() -> int:
             f"byte-identical to oracle; mean {np.mean(ts) * 1e3:.3f} "
             f"ms/frame (first {ts[0] * 1e3:.3f}, min {min(ts) * 1e3:.3f}), "
             f"{NFRAMES * n / 1e6 / sum(ts):.3f} Mpx/s")
+        facade_s["encode"] += sum(ts)
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -619,6 +662,7 @@ def main() -> int:
         log(f"encode 1x4K RGB photo, 3 times: byte-identical to oracle; "
             f"mean {np.mean(ts) * 1e3:.3f} ms (first {ts[0] * 1e3:.3f}, "
             f"min {min(ts) * 1e3:.3f}), {3 * n / 1e6 / sum(ts):.3f} Mpx/s")
+        facade_s["encode"] += float(np.mean(ts))
 
         # decode: decode_group (device pixels vs sources) and the facade
         for label, streams, frames in (("photo", photo_streams, photo),
@@ -651,6 +695,7 @@ def main() -> int:
                 check(np.array_equal(img, frame),
                       f"qoi_tpu_torch.decode {label} frame {i}: pixels "
                       "differ")
+            facade_s["decode"] += sum(ts)
             log(f"decode {NFRAMES}x4K {label} via qoi_tpu_torch.decode: "
                 f"pixel-identical; mean {np.mean(ts) * 1e3:.3f} ms/frame, "
                 f"{NFRAMES * n / 1e6 / sum(ts):.3f} Mpx/s (incl. upload "
@@ -664,6 +709,7 @@ def main() -> int:
         t0 = time.perf_counter()
         img, _ = qoi_tpu_torch.decode(adv, device=dev)
         dt = time.perf_counter() - t0
+        facade_s["decode"] += dt
         check(np.array_equal(img, oracle.decode(adv)[0]),
               "adversarial decode")
         log(f"decode 1x4K adversarial: device fixpoint bailed after "
@@ -795,6 +841,124 @@ def main() -> int:
                 f"{n / 1e6 / dt:.3f} Mpx/s")
         return max(peaks)
 
+    def captured(fn):
+        """(fn(), its standard output as lines) of an in-process surface,
+        so that no line of it stands where the result lines go."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue().splitlines()
+
+    def surfaces_path():
+        from qoi_tpu_torch import bench, cli, corpus
+        from qoi_tpu_torch import io as qio
+        from qoi_tpu_torch.config import EngineConfig
+        from qoi_tpu_torch.models import batch
+
+        # batched encode: the 4 mixed and the RGB photo frame in one call
+        frames = mixed + [photo_rgb]
+        got, ms = sync_ms(lambda: batch.encode_batch(frames, device=dev))
+        for i, (g, w) in enumerate(zip(got, mixed_streams
+                                       + [photo_rgb_stream])):
+            check(g == w, f"encode_batch frame {i}")
+        log(f"encode_batch {NFRAMES}x4K RGBA mixed + 1x4K RGB photo: "
+            f"byte-identical to oracle; {ms:.3f} ms, "
+            f"{(NFRAMES + 1) * n / 1e3 / ms:.3f} Mpx/s; the facade loop "
+            f"on the same frames (main-path run) "
+            f"{(NFRAMES + 1) * n / 1e6 / facade_s['encode']:.3f} Mpx/s")
+
+        # batched decode: 4 photo, 4 mixed, the adversarial stream and one
+        # with a corrupted magic, in one call
+        bad = b"qoiX" + mixed_streams[1][4:]
+        streams = photo_streams + mixed_streams + [adv4, bad]
+        res, ms = sync_ms(lambda: batch.decode_batch(streams, device=dev))
+        for i, frame in enumerate(photo + mixed + [adv4_img]):
+            check(res[i][2] is None and np.array_equal(res[i][0], frame),
+                  f"decode_batch stream {i}: pixels differ")
+        check(res[-1][0] is None and "magic" in (res[-1][2] or ""),
+              "decode_batch: the corrupted stream is not an error")
+        nd = 2 * NFRAMES + 1
+        log(f"decode_batch {NFRAMES}x4K photo + {NFRAMES}x4K mixed + the "
+            f"4K adversarial + a corrupted magic: pixel-identical to the "
+            f"sources (adversarial: the oracle's, through the ladder), the "
+            f"corrupted stream an error ({res[-1][2]!r}); {ms:.3f} ms, "
+            f"{nd * n / 1e3 / ms:.3f} Mpx/s over the {nd} frames; the "
+            f"facade loop on the same {nd} streams (main-path run) "
+            f"{nd * n / 1e6 / facade_s['decode']:.3f} Mpx/s")
+
+        # io with the per-call oracle check
+        cfg = EngineConfig(verify=True)
+        nbytes, ms = sync_ms(lambda: qio.write(tmp / "io.qoi", mixed[1],
+                                               desc4, engine=cfg, device=dev))
+        check((tmp / "io.qoi").read_bytes() == mixed_streams[1],
+              "io.write bytes")
+        (img, _), ms2 = sync_ms(lambda: qio.read(tmp / "io.qoi", engine=cfg,
+                                                 device=dev))
+        check(np.array_equal(img, mixed[1]), "io.read pixels")
+        log(f"io.write / io.read 1x4K mixed with verify=True: {nbytes} B, "
+            f"byte- and pixel-identical; {ms:.3f} / {ms2:.3f} ms")
+
+        # the CLI in process, then the subprocess started earlier
+        (rc, out), ms = sync_ms(lambda: captured(lambda: cli.main(
+            [str(tmp / "in.qoi"), str(tmp / "out.qoi"), "--verify"])))
+        check(rc == 0 and (tmp / "out.qoi").read_bytes() == mixed_streams[0],
+              f"cli.main rc {rc}")
+        log(f"cli.main in.qoi out.qoi --verify (4K mixed): rc 0, the "
+            f"oracle's bytes; {ms:.3f} ms; it printed {out}")
+        cli_thread.join()
+        r = cli_sub["res"]
+        check(r.returncode == 0, f"CLI subprocess rc {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        check((tmp / "sub.qoi").read_bytes() == mixed_streams[0],
+              "CLI subprocess bytes")
+        log(f"python3 -m qoi_tpu_torch.cli in.qoi sub.qoi --verify (4K "
+            f"mixed) in a subprocess: rc 0, the oracle's bytes; "
+            f"{cli_sub['s']:.3f} s wall, start-up included; it printed "
+            f"{r.stdout.strip()!r}")
+
+        # the sequential and the host engines through the facade
+        got, ms = sync_ms(lambda: qoi_tpu_torch.encode(
+            mixed[2], engine="scan", device=dev))
+        check(got == mixed_streams[2], "engine=scan encode")
+        (img, _), ms2 = sync_ms(lambda: qoi_tpu_torch.decode(
+            mixed_streams[2], engine="scan", device=dev))
+        check(np.array_equal(img, mixed[2]), "engine=scan decode")
+        log(f"engine=\"scan\" 1x4K mixed: byte- and pixel-identical; "
+            f"encode {ms:.3f} ms, {n / 1e3 / ms:.3f} Mpx/s; decode "
+            f"{ms2:.3f} ms, {n / 1e3 / ms2:.3f} Mpx/s")
+        got, ms = sync_ms(lambda: qoi_tpu_torch.encode(
+            mixed[3], engine="oracle", device=dev))
+        check(got == mixed_streams[3], "engine=oracle encode")
+        (img, _), ms2 = sync_ms(lambda: qoi_tpu_torch.decode(
+            mixed_streams[3], engine="oracle", device=dev))
+        check(np.array_equal(img, mixed[3]), "engine=oracle decode")
+        log(f"engine=\"oracle\" 1x4K mixed: byte- and pixel-identical; "
+            f"encode {ms:.3f} ms, decode {ms2:.3f} ms (host)")
+
+        # the corpus job over two .qoi streams, gated by the oracle
+        cdir = tmp / "corpus"
+        cdir.mkdir()
+        for i in range(2):
+            (cdir / f"m{i}.qoi").write_bytes(mixed_streams[i])
+        c, ms = sync_ms(lambda: corpus.run_job(
+            cdir, "roundtrip", oracle_verify=True, device=dev, progress=log))
+        check(c.images == 2 and c.verify_failures == 0, "corpus job")
+        check((c.pixels, c.raw_bytes, c.qoi_bytes) == (
+            2 * n, 2 * n * 4, len(mixed_streams[0]) + len(mixed_streams[1])),
+            f"corpus counters {c}")
+        log(f"corpus.run_job 2x4K mixed .qoi, roundtrip, oracle gate: "
+            f"{ms:.3f} ms; summary {json.dumps(c.summary())}")
+
+        # the harness on the small synthetic suite
+        (rc, out), ms = sync_ms(lambda: captured(lambda: bench.main(
+            ["1", "--synthetic", "small", "--nopng", "--onlytotals",
+             "--json", "--device", "cuda"])))
+        check(rc == 0, f"bench.main rc {rc}")
+        for line in out:
+            log(f"  bench | {line}")
+        log(f"bench.main 1 --synthetic small --nopng --onlytotals --json "
+            f"--device cuda: rc 0, {ms:.3f} ms")
+
     counted("main-path", ("slide_val", "expand_px", "block_maps"), main_path)
     counted("pack-encode", ("place_words",), pack_path)
     counted("staging", ("encode_stage", "place_words"), staging_path)
@@ -802,7 +966,10 @@ def main() -> int:
             dense_path)
     counted("streamed", ("slide_val", "block_maps", "expand_px",
                          "decode_scan", "encode_scan"), streamed_path)
-    log(f"launches over the five counted runs: {counts_total}")
+    counted("user-surfaces", ("slide_val", "block_maps", "expand_px",
+                              "encode_scan", "decode_scan"), surfaces_path)
+    tmp_ctx.cleanup()
+    log(f"launches over the six counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]

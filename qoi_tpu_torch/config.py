@@ -1,12 +1,16 @@
 """Engine configuration: the port's own copy of qoi_tpu/config.py.
 
 One dataclass covers the engine tunables; CLI tools map their argv onto
-it. The port reads `stream_tile_px` (models/streamed.py), and
-`decode_max_iters` and `bucket_floor` (models/decode_v3.decode,
-models/streamed.py, models/pipeline.encode). The other fields are kept
-so that a configuration means the same in both packages; the facade
-(qoi_tpu_torch.encode/decode) refuses them away from their defaults
-until their paths are ported.
+it, and the facade and io resolve it (io._as_config, io._engine). The
+port reads `engine` and `verify` (io.write/read), `stream_tile_px`
+(models/streamed.py), and `decode_max_iters` and `bucket_floor`
+(models/decode_v3.decode, models/streamed.py, models/pipeline.encode).
+`table_block` is accepted and has no effect: it is the width of the JAX
+package's brute-force table (qoi_tpu/models/pipeline.py), while the
+port's table (ops/table.py) is sort-based and gives the same output for
+every width. `mesh` is refused away from None until the
+sequence-parallel codec is ported. The fields are kept so that a
+configuration means the same in both packages.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ class EngineConfig:
     # shape-bucketing floor
     bucket_floor: int = 256
 
-    # within-block brute-force width of qoi_tpu/ops/table.py (<= 127)
+    # within-block brute-force width of qoi_tpu/ops/table.py (<= 127);
+    # validated, without effect on the port's sort-based table
     table_block: int = 64
 
     # models/streamed.py tile size (pixels for encode, bytes for decode);

@@ -558,3 +558,71 @@ def test_codec_on_card_matches_oracle(dev, ch):
         assert qoi_tpu_torch.encode(img, device=dev) == want, name
         got, _ = qoi_tpu_torch.decode(want, device=dev)
         np.testing.assert_array_equal(got, oracle.decode(want)[0], name)
+
+
+def test_batch_on_card_4k(dev):
+    """encode_batch / decode_batch on a batch of 4K frames: the oracle's
+    bytes and the sources' pixels, the adversarial stream through the
+    ladder and a corrupted one as an error, through the slide_val,
+    block_maps and expand kernels."""
+    from qoi_tpu_torch.models import batch
+
+    w, h = 3840, 2160
+    frames = [testimages.mixed(w, h, 4, seed=s) for s in (3, 4)] + [
+        testimages.photo(w, h, 3, seed=3)]
+    want = [oracle.encode(f, fmt.StreamDesc(w, h, f.shape[2]))
+            for f in frames]
+    _build.reset_launches()
+    assert batch.encode_batch(frames, device=dev) == want
+    assert _build.launches["slide_val"] >= len(frames)
+    adv = (fmt.pack_header(fmt.StreamDesc(640, 480, 4))
+           + b"\x05" * (640 * 480) + fmt.TRAILER)
+    bad = b"qoiX" + want[0][4:]
+    _build.reset_launches()
+    res = batch.decode_batch(want + [adv, bad], device=dev)
+    for (img, desc, err), frame in zip(res, frames + [oracle.decode(adv)[0]]):
+        assert err is None
+        np.testing.assert_array_equal(img, frame)
+    assert res[-1][:2] == (None, None) and "magic" in res[-1][2]
+    assert _build.launches["block_maps"] > 0
+    assert _build.launches["expand_px"] >= len(frames)
+
+
+@pytest.mark.parametrize("engine,needs", [
+    ("tpu", ("slide_val", "block_maps", "expand_px")),
+    ("scan", ("encode_scan", "decode_scan"))])
+def test_cli_on_card(dev, tmp_path, engine, needs):
+    """The converter CLI, .qoi -> .qoi verified against the oracle, on the
+    card (its default device), through the engine's kernels."""
+    from qoi_tpu_torch import cli
+
+    img = testimages.mixed(1920, 1080, 4, seed=2)
+    stream = oracle.encode(img, fmt.StreamDesc(1920, 1080, 4))
+    (tmp_path / "a.qoi").write_bytes(stream)
+    _build.reset_launches()
+    assert cli.main([str(tmp_path / "a.qoi"), str(tmp_path / "b.qoi"),
+                     "--verify", "--engine", engine]) == 0
+    assert (tmp_path / "b.qoi").read_bytes() == stream
+    for name in needs:
+        assert _build.launches[name] > 0, name
+
+
+def test_profiling_on_card(dev, tmp_path):
+    """utils.profiling on the card: the trace holds the encode's kernels
+    and the annotation; device_sync_time synchronizes the card."""
+    import json
+
+    from qoi_tpu_torch.utils import profiling
+
+    img = testimages.mixed(48, 32, 4, seed=1)
+    want = oracle.encode(img, fmt.StreamDesc(48, 32, 4))
+    with profiling.trace(tmp_path, device=dev):
+        with profiling.annotate("qoi_encode"):
+            got = qoi_tpu_torch.encode(img, device=dev)
+    assert got == want
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert sum(ev.get("cat") == "kernel" for ev in events) > 0
+    assert any(ev.get("name") == "qoi_encode" for ev in events)
+    t = profiling.device_sync_time(
+        lambda: qoi_tpu_torch.encode(img, device=dev), reps=2, device=dev)
+    assert 0 < t < 10

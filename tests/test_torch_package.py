@@ -67,9 +67,10 @@ sys.modules["jax"] = None
 sys.modules["qoi_tpu"] = None
 import numpy as np
 import qoi_tpu_torch
-from qoi_tpu_torch import config, format, oracle
+from qoi_tpu_torch import (config, format, oracle, io, cli, corpus, bench)
 from qoi_tpu_torch.models import (pipeline, decode_v3, buckets, streamed,
-                                  scan_codec)
+                                  scan_codec, batch)
+from qoi_tpu_torch.utils import profiling
 from qoi_tpu_torch.ops import scans, table, compact, fsm
 from qoi_tpu_torch.kernels import (slide, expand, block_maps, pack,
                                    encode_stage, scan_codec, _build)
@@ -100,6 +101,80 @@ def test_cuda_default_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         qoi_tpu_torch.decode(qoi_tpu_torch.encode(img, device="cpu"),
                              device="cuda")
+
+
+def test_surfaces_import_and_run_with_pil_blocked(tmp_path):
+    """With PIL made unimportable (the card's machine has none), io, cli,
+    corpus, bench, models.batch and utils.profiling import, and the CLI,
+    the corpus job and the bench run on .qoi inputs and --nopng."""
+    code = f"""
+import sys
+sys.modules["PIL"] = None
+import numpy as np
+from qoi_tpu_torch import cli, corpus, bench, io, oracle
+from qoi_tpu_torch.models import batch
+from qoi_tpu_torch.utils import profiling, testimages
+img = testimages.mixed(23, 9, 4)
+src = {str(tmp_path / "a.qoi")!r}
+open(src, "wb").write(oracle.encode(img, io.image_desc(img)))
+assert cli.main([src, {str(tmp_path / "b.qoi")!r}, "--verify",
+                 "--device", "cpu"]) == 0
+c = corpus.run_job({str(tmp_path)!r}, oracle_verify=True, device="cpu",
+                   progress=lambda m: None)
+assert c.images == 2 and c.verify_failures == 0
+assert bench.main(["1", "--synthetic", "small", "--nopng", "--onlytotals",
+                   "--device", "cpu"]) == 0
+assert "PIL" not in {{m.split(".")[0] for m, v in sys.modules.items() if v}}
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def _call_surface(name, tmp_path):
+    """Call one user surface with its default device."""
+    from qoi_tpu_torch import bench, cli, corpus, io
+    from qoi_tpu_torch.models import batch
+    from qoi_tpu_torch.utils import profiling
+
+    img = testimages.mixed(12, 5, 4)
+    desc = io.image_desc(img)
+    stream = toracle.encode(img, desc)
+    src = tmp_path / "a.qoi"
+    src.write_bytes(stream)
+    calls = {
+        "io.write": lambda: io.write(tmp_path / "b.qoi", img, desc),
+        "io.read": lambda: io.read(src),
+        "io.read(engine=oracle)": lambda: io.read(src, engine="oracle"),
+        "encode(engine=scan)": lambda: qoi_tpu_torch.encode(img,
+                                                            engine="scan"),
+        "encode_batch": lambda: batch.encode_batch([img]),
+        "decode_batch": lambda: batch.decode_batch([stream]),
+        "run_job": lambda: corpus.run_job(tmp_path, progress=lambda m: None),
+        "corpus.main": lambda: corpus.main([str(tmp_path)]),
+        "cli.main": lambda: cli.main([str(src), str(tmp_path / "c.qoi")]),
+        "bench.main": lambda: bench.main(["1", "--synthetic", "small",
+                                          "--nopng"]),
+        "profiling.trace": lambda: profiling.trace(tmp_path).__enter__(),
+        "profiling.device_sync_time": lambda: profiling.device_sync_time(
+            lambda: None),
+    }
+    return calls[name]()
+
+
+@pytest.mark.parametrize("name", [
+    "io.write", "io.read", "io.read(engine=oracle)", "encode(engine=scan)",
+    "encode_batch", "decode_batch", "run_job", "corpus.main", "cli.main",
+    "bench.main", "profiling.trace", "profiling.device_sync_time"])
+def test_surfaces_default_to_cuda_and_raise_without_a_card(name, tmp_path):
+    """Every user surface defaults to "cuda" and raises on a machine
+    without a card instead of running on the CPU, whatever the engine."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _call_surface(name, tmp_path)
 
 
 @pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps",
