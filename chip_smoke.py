@@ -6,15 +6,15 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the eight kernels against its plain PyTorch
-twin (results must be exactly equal): the six parallel ones at the
-shapes their paths give them at 4K, the two sequential scans at 65,536
-pixels from a random entry state. decode_scan also runs on a whole 4 MiB
-streamed tile from its real entry state, where its pixels must equal the
-source frame's and the fixpoint's and its exit state the one those pixels
-imply. Then it drives six paths through the port's public functions,
-each with the launch counts set to 0 just before it and read just
-after:
+in parallel), holds each of the nine kernels against its plain PyTorch
+twin (results must be exactly equal): the six parallel ones and the
+numeric re-scan at the shapes their paths give them at 4K, the two
+sequential codec scans at 65,536 pixels from a random entry state.
+decode_scan also runs on a whole 4 MiB streamed tile from its real entry
+state, where its pixels must equal the source frame's and the fixpoint's
+and its exit state the one those pixels imply. Then it drives seven paths
+through the port's public functions, each with the launch counts set to 0
+just before it and read just after:
 
   1. the main path: encode 4 RGBA `mixed` 4K frames (seeds 3..6) and 1
      RGB `photo` 4K frame (3 times) with qoi_tpu_torch.encode, each
@@ -48,6 +48,18 @@ after:
      engine="scan" and engine="oracle", corpus.run_job over two .qoi
      streams with the oracle gate, and bench.main on the small synthetic
      suite;
+  7. the cross-check engines and the ladder's rungs at 4K: the v1 decoder
+     (decode_pipeline.decode) on a photo, a mixed and the adversarial
+     stream, its iterations, and capped at one iteration (it then falls
+     to decode_scan); the v2 decoder (decode_v2.decode) on the photo and
+     mixed streams, its rounds (a stream that does not converge in 12
+     goes to v1); decode_v3._resolve_p with apply="scan" (block_maps,
+     compose, the numeric_scan kernel) against apply="vector" on the
+     mixed stream's round 1, px and exit state equal; and
+     decode_v3._decode_ladder with the native decoder hidden by a hook of
+     this script, which must reach v1 on the adversarial stream, beside
+     the native decoder's time. All pixel-identical to the sources or the
+     oracle;
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
@@ -147,11 +159,12 @@ def main() -> int:
     from qoi_tpu_torch.kernels import block_maps as kbm
     from qoi_tpu_torch.kernels import encode_stage as kstage
     from qoi_tpu_torch.kernels import expand as kexp
+    from qoi_tpu_torch.kernels import numeric_scan as kns
     from qoi_tpu_torch.kernels import pack as kpack
     from qoi_tpu_torch.kernels import scan_codec as kscan
     from qoi_tpu_torch.kernels import slide as kslide
-    from qoi_tpu_torch.models import (buckets, decode_v3, pipeline,
-                                      scan_codec, streamed)
+    from qoi_tpu_torch.models import (decode_pipeline, decode_v2, decode_v3,
+                                      pipeline, scan_codec, streamed)
     from qoi_tpu_torch.ops import compact
     from qoi_tpu_torch.utils import testimages
 
@@ -188,7 +201,7 @@ def main() -> int:
     desc4 = fmt.StreamDesc(W, H, 4)
     desc3 = fmt.StreamDesc(W, H, 3)
     n = desc4.num_pixels
-    npc = buckets.bucket_size(n)
+    npc = decode_pipeline.bucket_size(n)
     t0 = time.perf_counter()
     mixed = [testimages.mixed(W, H, 4, seed=s) for s in SEEDS]
     photo = [testimages.photo(W, H, 4, seed=s) for s in SEEDS]
@@ -207,7 +220,7 @@ def main() -> int:
 
     def padded_body(stream):
         raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
-        pad = np.zeros(buckets.bucket_size_fine(len(raw)), np.uint8)
+        pad = np.zeros(decode_pipeline.bucket_size_fine(len(raw)), np.uint8)
         pad[: len(raw)] = raw
         return (torch.from_numpy(pad).to(dev),
                 len(stream) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE)
@@ -270,6 +283,7 @@ def main() -> int:
                                                           lit32_p))
     err = max(compare(f"block_maps[{i}]", g, w_)
               for i, (g, w_) in enumerate(zip(got, want)))
+    entry = to_i32(decode_v3._compose_entry_states(got[0], got[1]))
     del got, want
     nb = meta.shape[1]
     log(f"block_maps (b, nb) = {tuple(meta.shape)} (plain: one run, host "
@@ -277,8 +291,28 @@ def main() -> int:
     row("block_maps", "block_maps.cu", "qoi_tpu/models/decode_v3.py:300",
         err, cuda_ms(lambda: kbm.block_maps(meta, d32_p, lit32_p), 5),
         plain_ms, 20 * meta.numel() + 8 * 65 * nb, 20 * meta.numel())
-    del meta, d32_p, lit32_p
     phase_done("block_maps vs twin")
+
+    # I: pass 3 as the numeric re-scan, on the same round-1 planes and the
+    # block entry states pass 2 composes from them, at full shape
+    got = kns.numeric_scan(meta, d32_p, lit32_p, entry)
+    want, plain_ms = sync_ms(lambda: kns.numeric_scan_plain(
+        meta, d32_p, lit32_p, entry))
+    err = max(compare(f"numeric_scan[{i}]", g, w_)
+              for i, (g, w_) in enumerate(zip(got, want)))
+    del got, want
+    log(f"numeric_scan (b, nb) = {tuple(meta.shape)}, from the 4K mixed "
+        "stream's round-1 planes and block entry states, all lanes "
+        "compared (plain: one run, host clock)")
+    # per position 12 B read and 4 B written, the entry states read and
+    # the exit state written; ~20 integer operations a position
+    row("numeric_scan", "numeric_scan.cu", "qoi_tpu/models/decode_v3.py:441",
+        err, cuda_ms(lambda: kns.numeric_scan(meta, d32_p, lit32_p, entry),
+                     20),
+        plain_ms, 16 * meta.numel() + 4 * 65 * nb + 4 * 65,
+        20 * meta.numel())
+    del meta, d32_p, lit32_p, entry
+    phase_done("numeric_scan vs twin")
 
     px, starts, _, pix_off, conv, _, _ = decode_v3._decode_core(data, clen)
     check(conv, "4K mixed stream did not converge for the expand input")
@@ -667,7 +701,7 @@ def main() -> int:
         # decode: decode_group (device pixels vs sources) and the facade
         for label, streams, frames in (("photo", photo_streams, photo),
                                        ("mixed", mixed_streams, mixed)):
-            mcap = buckets.bucket_size_fine(
+            mcap = decode_pipeline.bucket_size_fine(
                 max(len(x) for x in streams) - fmt.HEADER_SIZE)
             bodies = np.zeros((NFRAMES, mcap), np.uint8)
             clens = []
@@ -966,10 +1000,131 @@ def main() -> int:
             dense_path)
     counted("streamed", ("slide_val", "block_maps", "expand_px",
                          "decode_scan", "encode_scan"), streamed_path)
+    def cross_check_path():
+        cc_peaks = []
+
+        def peak_ms(fn):
+            """(fn(), ms, peak device GiB) of one sync-bracketed call."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, ms = sync_ms(fn)
+            cc_peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            return out, ms, cc_peaks[-1]
+
+        # v1: the device decode with its iterations, then the public decode
+        for label, stream, want in (
+                ("photo", photo_streams[0], photo[0]),
+                ("mixed", mixed_streams[0], mixed[0]),
+                ("adversarial", adv4, adv4_img)):
+            raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
+            pad = np.zeros(decode_pipeline.bucket_size(len(raw)), np.uint8)
+            pad[: len(raw)] = raw
+            data = torch.from_numpy(pad).to(dev)
+            (_, conv, iters), ms_dev, peak = peak_ms(
+                lambda: decode_pipeline._decode_chunks(
+                    data, len(raw) - fmt.TRAILER_SIZE, npc))
+            del data
+            (img, _), ms = sync_ms(
+                lambda: decode_pipeline.decode(stream, 0, dev))
+            check(np.array_equal(img, want), f"v1 decode 4K {label}")
+            log(f"v1 decode_pipeline.decode 4K {label}: pixel-identical; "
+                f"{ms:.3f} ms, {n / 1e3 / ms:.3f} Mpx/s; its device decode "
+                f"_decode_chunks {ms_dev:.3f} ms, peak {peak:.3f} GiB, "
+                f"{iters} iterations, "
+                + ("converged" if conv else "not converged: fell to "
+                   "decode_scan"))
+        # v1 capped at one iteration: the adversarial stream falls to the
+        # sequential decoder
+        k0 = _build.launches["decode_scan"]
+        cap = decode_pipeline._MAX_FIXPOINT_ITERS
+        decode_pipeline._MAX_FIXPOINT_ITERS = 1
+        try:
+            (img, _), ms = sync_ms(
+                lambda: decode_pipeline.decode(adv4, 0, dev))
+        finally:
+            decode_pipeline._MAX_FIXPOINT_ITERS = cap
+        check(np.array_equal(img, adv4_img)
+              and _build.launches["decode_scan"] == k0 + 1,
+              "v1 capped at one iteration: decode_scan")
+        log(f"v1 capped at 1 iteration, 4K adversarial: not converged, fell "
+            f"to decode_scan (1 launch), equals the oracle's pixels; "
+            f"{ms:.3f} ms")
+        # v2: the device decode with its rounds, then the public decode
+        for label, stream, want in (("photo", photo_streams[0], photo[0]),
+                                    ("mixed", mixed_streams[0], mixed[0])):
+            raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
+            pad = np.zeros(decode_pipeline.bucket_size(len(raw)), np.uint8)
+            pad[: len(raw)] = raw
+            data = torch.from_numpy(pad).to(dev)
+            (_, conv, rounds), ms_dev, peak = peak_ms(
+                lambda: decode_v2._decode_v2_device(
+                    data, len(raw) - fmt.TRAILER_SIZE, npc))
+            del data
+            (img, _), ms = sync_ms(lambda: decode_v2.decode(stream, 0, dev))
+            check(np.array_equal(img, want), f"v2 decode 4K {label}")
+            log(f"v2 decode_v2.decode 4K {label}: pixel-identical; "
+                f"{ms:.3f} ms, {n / 1e3 / ms:.3f} Mpx/s; its device decode "
+                f"_decode_v2_device {ms_dev:.3f} ms, peak {peak:.3f} GiB, "
+                f"{rounds} rounds, "
+                + ("converged" if conv else "not converged (the JAX "
+                   "package's cap of 12): went to v1"))
+        # pass 3 both ways on the mixed stream's round 1
+        data, clen = padded_body(mixed_streams[0])
+        m = data.shape[0]
+        b = decode_v3._scan_block_len(m)
+        starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
+        w0, _ = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+        w0 = torch.where(starts, w0, 0)
+        planes = (decode_v3._pos_major((cls | (r6 << 9)).to(torch.int32),
+                                       m, b),
+                  decode_v3._pos_major(to_i32(d32), m, b),
+                  decode_v3._pos_major(to_i32(lit32), m, b))
+        del data, starts, cls, r6, d32, lit32, npix
+        (px_s, ex_s, _), ms_s = sync_ms(lambda: decode_v3._resolve_p(
+            *planes, w0, m, b, apply="scan"))
+        (px_v, ex_v, _), ms_v = sync_ms(lambda: decode_v3._resolve_p(
+            *planes, w0, m, b, apply="vector"))
+        check(torch.equal(px_s, px_v) and torch.equal(ex_s, ex_v),
+              "_resolve_p: apply=scan differs from apply=vector")
+        log(f"_resolve_p 4K mixed round 1 (M = {m}, b = {b}): apply=\"scan\" "
+            f"(block_maps, compose, numeric_scan) equals apply=\"vector\", "
+            f"px after every byte and exit state; {ms_s:.3f} ms vs "
+            f"{ms_v:.3f} ms")
+        del planes, w0, px_s, px_v
+        # the ladder: native, else v1 (native hidden by this hook)
+        (img, _), ms_native = sync_ms(
+            lambda: decode_v3._decode_ladder(adv4, 0, dev))
+        check(np.array_equal(img, adv4_img), "ladder, native")
+        saved = oracle.available, oracle.decode, decode_pipeline.decode
+        reached = []
+
+        def v1_hook(*a):
+            reached.append(a[0])
+            return saved[2](*a)
+
+        k0 = _build.launches["decode_scan"]
+        oracle.available, oracle.decode = (lambda: False), None
+        decode_pipeline.decode = v1_hook
+        try:
+            (img, _), ms = sync_ms(
+                lambda: decode_v3._decode_ladder(adv4, 0, dev))
+        finally:
+            oracle.available, oracle.decode, decode_pipeline.decode = saved
+        check(reached == [adv4] and np.array_equal(img, adv4_img)
+              and _build.launches["decode_scan"] == k0,
+              "ladder without the native decoder: not v1, or not exact")
+        log(f"decode_v3._decode_ladder 4K adversarial: native decoder "
+            f"{ms_native:.3f} ms; with it hidden, v1 on the card "
+            f"{ms:.3f} ms (converged, no decode_scan launch), both equal "
+            "to the oracle's pixels")
+        return max(cc_peaks)
+
     counted("user-surfaces", ("slide_val", "block_maps", "expand_px",
                               "encode_scan", "decode_scan"), surfaces_path)
     tmp_ctx.cleanup()
-    log(f"launches over the six counted runs: {counts_total}")
+    counted("cross-check engines", ("numeric_scan", "block_maps",
+                                    "decode_scan"), cross_check_path)
+    log(f"launches over the seven counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]

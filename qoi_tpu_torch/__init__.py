@@ -4,10 +4,10 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The layout mirrors qoi_tpu/ so each function's counterpart is found by
 name: format, config, oracle and utils/testimages (the numpy leaves),
 the user surfaces (io, cli, corpus, bench, utils/profiling), ops/
-(scans, table, compact, fsm), models/ (pipeline, decode_v3, streamed,
-scan_codec, batch, buckets), kernels/ (slide, expand, block_maps,
-pack, encode_stage, scan_codec: the Python wrappers and their plain
-PyTorch twins) and csrc/ (the CUDA sources, built with nvcc at first use
+(scans, table, link, compact, fsm), models/ (pipeline, decode_v3,
+decode_pipeline, decode_v2, streamed, scan_codec, batch), kernels/
+(slide, expand, block_maps, pack, encode_stage, scan_codec,
+numeric_scan: the Python wrappers and their plain PyTorch twins) and csrc/ (the CUDA sources, built with nvcc at first use
 into build/).
 
 Every public function takes its tensors on an explicit device. The facade

@@ -82,7 +82,7 @@ def main() -> int:
     from .kernels import _build
     from .kernels import encode_stage as kstage
     from .kernels import slide as kslide
-    from .models import buckets, pipeline
+    from .models import decode_pipeline, pipeline
     from .ops import compact
     from .utils import testimages
 
@@ -99,7 +99,7 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}", flush=True)
 
     n = W * H
-    npc = buckets.bucket_size(n)
+    npc = decode_pipeline.bucket_size(n)
 
     def px4_of(frame, ch):
         px4 = np.zeros((npc, 4), np.uint8)

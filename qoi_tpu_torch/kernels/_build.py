@@ -48,6 +48,8 @@ _SIGNATURES = {
     "qoi_decode_scan": [_P, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_longlong, _P, _P, _P, _P],
     "qoi_encode_scan": [_P, ctypes.c_longlong, _P, _P, _P],
+    "qoi_numeric_scan": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                         _P],
 }
 
 #: launches per kernel since the last `reset_launches()`; each wrapper
@@ -55,7 +57,8 @@ _SIGNATURES = {
 launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "block_maps": 0, "slide_val2": 0,
                             "place_words": 0, "encode_stage": 0,
-                            "encode_scan": 0, "decode_scan": 0}
+                            "encode_scan": 0, "decode_scan": 0,
+                            "numeric_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -29,14 +29,22 @@ from . import _build
 _CLS_ID, _CLS_ADD, _CLS_RGB, _CLS_RGBA, _CLS_INDEX = range(5)
 
 
-def _step_common(cls, d32, lit32, px_root, px_val, src_root, src_val):
-    """New px entry (root, val) for one step (decode_v3._step_common)."""
+def _step_val(cls, d32, lit32, px_val, src_val):
+    """New numeric px for one step (the value half of
+    decode_v3._step_common): ADD adds d32 bytewise, RGB takes the
+    literal's rgb under the running alpha, RGBA the literal, INDEX the
+    slot's value; other classes keep px."""
     addv = swar_add(px_val, d32)
     rgbv = (lit32 & 0x00FFFFFF) | (px_val & 0xFF000000)
-    new_val = torch.where(cls == _CLS_ADD, addv,
-              torch.where(cls == _CLS_RGB, rgbv,
-              torch.where(cls == _CLS_RGBA, lit32,
-              torch.where(cls == _CLS_INDEX, src_val, px_val))))
+    return torch.where(cls == _CLS_ADD, addv,
+           torch.where(cls == _CLS_RGB, rgbv,
+           torch.where(cls == _CLS_RGBA, lit32,
+           torch.where(cls == _CLS_INDEX, src_val, px_val))))
+
+
+def _step_common(cls, d32, lit32, px_root, px_val, src_root, src_val):
+    """New px entry (root, val) for one step (decode_v3._step_common)."""
+    new_val = _step_val(cls, d32, lit32, px_val, src_val)
     rgbr = (px_root & 0xFF000000) | 0x00414141   # rgb absolute, a flows
     new_root = torch.where(cls == _CLS_ADD, px_root,
                torch.where(cls == _CLS_RGB, rgbr,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import format as fmt
-from . import buckets, decode_v3, pipeline
+from . import decode_pipeline, decode_v3, pipeline
 
 #: bytes of a group's resident device buffers (upload and outputs)
 GROUP_BUDGET_BYTES = 4 << 30
@@ -56,7 +56,7 @@ def encode_batch(images: Sequence[np.ndarray],
     groups: Dict[int, List[int]] = collections.defaultdict(list)
     for i, d in enumerate(descs):
         d.validate()
-        groups[buckets.bucket_size(d.num_pixels)].append(i)
+        groups[decode_pipeline.bucket_size(d.num_pixels)].append(i)
 
     out: List[bytes] = [b""] * len(images)
     for bucket, idxs in sorted(groups.items()):
@@ -88,8 +88,8 @@ def decode_batch(streams: Sequence[bytes], channels: int = 0,
     the rest of the batch proceeds. Streams group by (byte bucket, pixel
     bucket) and run `decode_v3.decode_group` (the block_maps and expand
     kernels on the card); a stream whose fixpoint does not converge goes
-    through `decode_v3._decode_ladder`, where the JAX package takes its v1
-    decoder; the pixels are the same."""
+    to the v1 decoder, `decode_pipeline.decode` (which falls back to the
+    sequential one), as in the JAX package."""
     from .. import _device
 
     dev = _device(device)
@@ -109,8 +109,10 @@ def decode_batch(streams: Sequence[bytes], channels: int = 0,
     groups: Dict[Tuple[int, int], List[int]] = collections.defaultdict(list)
     for i, d in enumerate(parsed):
         if d is not None:
-            cap = buckets.bucket_size_fine(len(streams[i]) - fmt.HEADER_SIZE)
-            groups[(cap, buckets.bucket_size(d.num_pixels))].append(i)
+            cap = decode_pipeline.bucket_size_fine(
+                len(streams[i]) - fmt.HEADER_SIZE)
+            npc = decode_pipeline.bucket_size(d.num_pixels)
+            groups[(cap, npc)].append(i)
 
     for (cap, npc), idxs in sorted(groups.items()):
         for sub in _sub_groups(idxs, cap + 8 * npc):
@@ -131,8 +133,8 @@ def decode_batch(streams: Sequence[bytes], channels: int = 0,
                     img = decode_v3.unpack_px32(px32[row])[
                         : d.num_pixels, :out_ch].reshape(
                         d.height, d.width, out_ch)
-                else:  # non-canonical stream: the decode ladder
-                    img, _ = decode_v3._decode_ladder(streams[i], channels,
-                                                      dev)
+                else:  # non-canonical stream: the certified fallback
+                    img, _ = decode_pipeline.decode(streams[i], channels,
+                                                    dev)
                 results[i] = (img, d, None)
     return results

@@ -26,9 +26,10 @@ u32 values are int64 in [0, 2**32) (see _bits); kernel planes are int32
 bit patterns. The fixpoint loop is a Python loop that reads the mismatch
 count to the host once per round. The dense expand (`dense=True`) first
 packs the chunk starts' records to the front (`_compact_chunks`, whose
-two-plane slide is kernels/slide.slide_val2). Not ported yet: the
-numeric re-scan pass 3 (apply="scan") and vmapped batches
-(`decode_group` loops over the streams).
+two-plane slide is kernels/slide.slide_val2). `_resolve_p(apply="scan")`
+re-scans pass 3 numerically (kernels/numeric_scan.py), the differential
+anchor of `_apply_symbolic`. `decode_group` loops over its streams where
+the JAX package vmaps them.
 """
 from __future__ import annotations
 
@@ -38,15 +39,16 @@ import numpy as np
 import torch
 
 from .. import format as fmt
-from .._bits import swar_sub, to_i32
+from .._bits import swar_sub, to_i32, u32
 from ..kernels.block_maps import (_CLS_ADD, _CLS_ID, _CLS_INDEX, _CLS_RGB,
                                   _CLS_RGBA, block_maps)
 from ..kernels.expand import expand_px
+from ..kernels.numeric_scan import numeric_scan
 from ..kernels.slide import slide_val2
 from ..ops import fsm
 from ..ops.compact import assemble_rows
 from ..ops.scans import assoc_scan, exclusive_cumsum
-from . import buckets
+from . import decode_pipeline as v1
 
 _SEED_HASH = fmt.hash_rgba(*fmt.SEED_PIXEL)
 _ABS = 65  # per-channel root symbol: absolute value (no entry dependence)
@@ -271,18 +273,42 @@ def _pos_major(x: torch.Tensor, m: int, b: int) -> torch.Tensor:
     return x.reshape(m // b, b).T.contiguous()
 
 
-def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None):
+def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None,
+               apply: str = "vector"):
     """One full symbolic resolve given written slots w, from the
     loop-invariant position-major int32 planes (base_p = cls | r6 << 9,
     d32_p, lit32_p). Returns (px32 (M,) u32 after every byte, exit65,
-    (root, val, entry, proot)): the pass-1 maps, the block entry states
-    and the per-position px roots, which the surgical round reuses."""
+    extra). `apply` picks pass 3: "vector" applies pass 2's entry states
+    to pass 1's per-position symbolic px entries (`_apply_symbolic`), and
+    extra is (root, val, entry, proot): the pass-1 maps, the block entry
+    states and the per-position px roots, which the surgical round reuses;
+    "scan" re-scans every block lane numerically from its entry state
+    (kernels/numeric_scan.py: the CUDA kernel on the card), the
+    differential anchor of the vector form, and extra is None."""
     meta_p = base_p | (_pos_major(w, m, b) << 3).to(torch.int32)
     root, val, proot, pval = block_maps(meta_p, d32_p, lit32_p)
+    if apply == "scan":
+        entry = _compose_entry_states(root, val, entry65)
+        px, exit65 = numeric_scan(meta_p, d32_p, lit32_p, to_i32(entry))
+        return u32(px).T.reshape(m), u32(exit65), None
+    if apply != "vector":
+        raise ValueError(f"apply must be 'vector' or 'scan', got {apply!r}")
     entry, exit65 = _compose_entry_states(root, val, entry65,
                                           return_exit=True)
     px = _apply_symbolic(proot, pval, entry).T.reshape(m)
     return px, exit65, (root, val, entry, proot)
+
+
+def _resolve(cls, r6, w, d32, lit32, m: int, b: int, entry65=None,
+             apply: str = "vector"):
+    """One full symbolic resolve given written slots w, from the flat
+    (M,) planes (a wrapper of `_resolve_p`). Returns (px32 (M,) u32,
+    exit65 (65,) u32)."""
+    base_p = _pos_major((cls | (r6 << 9)).to(torch.int32), m, b)
+    px, exit65, _ = _resolve_p(base_p, _pos_major(to_i32(d32), m, b),
+                               _pos_major(to_i32(lit32), m, b), w, m, b,
+                               entry65, apply)
+    return px, exit65
 
 
 #: surgical round geometry: W windows of WB consecutive blocks, K = 64
@@ -536,13 +562,13 @@ def decode(data: bytes, channels: int, device, config=None
 
     chunks = np.frombuffer(data, dtype=np.uint8)[fmt.HEADER_SIZE:]
     chunks_len = len(data) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
-    padded = np.zeros((buckets.bucket_size_fine(len(chunks), floor),),
+    padded = np.zeros((v1.bucket_size_fine(len(chunks), floor),),
                       np.uint8)
     padded[: len(chunks)] = chunks
 
     px32, conv, _ = _decode_device(
         torch.from_numpy(padded).to(device), chunks_len,
-        buckets.bucket_size(desc.num_pixels, floor), max_rounds=max_rounds)
+        v1.bucket_size(desc.num_pixels, floor), max_rounds=max_rounds)
     if not conv:
         return _decode_ladder(data, channels, device)
     img = unpack_px32(px32[: desc.num_pixels].cpu().numpy())[:, :out_ch]
@@ -552,14 +578,14 @@ def decode(data: bytes, channels: int, device, config=None
 def _decode_ladder(data: bytes, channels: int, device):
     """Fallback for fixpoint non-convergence (non-canonical streams: INDEX
     reads of unwritten slots break the table invariant the anchored
-    rebuild relies on): the native C++ decoder (cpp/qoi_oracle.cpp) when
-    it is built, else the sequential scan codec on `device`
-    (models/scan_codec.py, whose decode is one CUDA kernel on the card).
-    The JAX ladder tries its v1 decoder before the scan; v1 is not
-    ported, and the result is the same."""
+    rebuild relies on), in the JAX package's order: the native C++
+    decoder (cpp/qoi_oracle.cpp) when it is built, else the v1 decoder on
+    `device` (models/decode_pipeline.py, which decodes an INDEX read of
+    a never-written slot explicitly and falls back to the sequential
+    scan codec, one CUDA kernel on the card, when its own fixpoint does
+    not converge)."""
     from .. import oracle
-    from . import scan_codec
 
     if oracle.available():
         return oracle.decode(data, channels)
-    return scan_codec.decode(data, channels, device)
+    return v1.decode(data, channels, device)

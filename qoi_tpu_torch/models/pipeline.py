@@ -28,7 +28,7 @@ from .. import format as fmt
 from .._bits import M32, swar_add, swar_sub
 from ..kernels import pack as kpack
 from ..ops import compact, scans, table
-from .buckets import bucket_size
+from .decode_pipeline import bucket_size
 
 _SEED = fmt.SEED_PIXEL
 

@@ -5,9 +5,9 @@ The bit-exactness anchor: a literal transcription of the per-pixel state
 machines (encoder: qoi.h:406-478; decoder: qoi.h:540-587). Each of the two
 walks is one CUDA kernel on the card (kernels/scan_codec.py over
 csrc/scan_codec.cu) and a plain twin on the CPU. The decoder is the
-decode ladder's floor when the native build is missing
-(decode_v3._decode_ladder) and, with an entry state, the streamed
-decoder's repair of tiles whose fixpoint does not converge.
+decode ladder's floor (the v1 decoder's fallback, models/decode_pipeline.py)
+and, with an entry state, the streamed decoder's repair of tiles whose
+fixpoint does not converge.
 """
 from __future__ import annotations
 

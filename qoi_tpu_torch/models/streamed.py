@@ -35,7 +35,7 @@ from ..kernels.expand import _SEED32, expand_px
 from ..ops import compact, fsm
 from ..ops.scans import exclusive_cumsum
 from . import decode_v3, pipeline, scan_codec
-from .buckets import bucket_size
+from .decode_pipeline import bucket_size
 
 #: tiles uploaded ahead of the one being encoded
 _DEPTH = 2

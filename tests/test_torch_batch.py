@@ -9,7 +9,7 @@ import pytest
 from qoi_tpu.models import batch as jbatch
 from qoi_tpu_torch import format as fmt
 from qoi_tpu_torch import oracle
-from qoi_tpu_torch.models import batch, buckets, decode_v3
+from qoi_tpu_torch.models import batch, decode_pipeline, decode_v3
 from qoi_tpu_torch.utils import testimages
 
 CPU = "cpu"
@@ -22,8 +22,8 @@ def _desc(img):
 
 def _bucket(stream):
     """The (byte, pixel) bucket a stream groups by."""
-    return (buckets.bucket_size_fine(len(stream) - fmt.HEADER_SIZE),
-            buckets.bucket_size(fmt.unpack_header(stream).num_pixels))
+    return (decode_pipeline.bucket_size_fine(len(stream) - fmt.HEADER_SIZE),
+            decode_pipeline.bucket_size(fmt.unpack_header(stream).num_pixels))
 
 
 def _mixed_images():
@@ -50,7 +50,7 @@ def _one_group_images():
 
 def _noncanonical():
     """INDEX reads of never-written slots: the device fixpoint cannot
-    certify it, so it takes the decode ladder."""
+    certify it, so it takes the certified fallback (v1)."""
     body = bytes([fmt.OP_INDEX | 5, fmt.OP_INDEX | 0, fmt.OP_RGB, 9, 9, 9,
                   fmt.OP_RUN | 2] + [fmt.OP_RGBA, 1, 2, 3, 77] * 19)
     return fmt.pack_header(fmt.StreamDesc(9, 7, 4)) + body + fmt.TRAILER
@@ -93,24 +93,44 @@ def test_decode_batch_isolates_bad_streams():
     assert results[2][:2] == (None, None) and "short" in results[2][2]
 
 
+def _watch(monkeypatch, module):
+    """Record the streams `module.decode` is called with."""
+    seen = []
+    orig = module.decode
+    monkeypatch.setattr(module, "decode",
+                        lambda data, *a: seen.append(data) or orig(data, *a))
+    return seen
+
+
 def test_decode_batch_noncanonical_in_group(monkeypatch):
     """A non-canonical stream rides in a group next to canonical ones of
-    the same buckets and alone takes the decode ladder; everything
-    matches the oracle."""
+    the same buckets and alone goes to the v1 decoder, as in the JAX
+    batch; everything matches the oracle."""
     good = testimages.gradient(16, 4, 4)
     s1 = oracle.encode(good, _desc(good))
     s2 = _noncanonical()
     assert len({_bucket(s) for s in (s1, s2)}) == 1
-    ladder = decode_v3._decode_ladder
-    seen = []
-    monkeypatch.setattr(decode_v3, "_decode_ladder",
-                        lambda data, *a: seen.append(data) or ladder(data, *a))
+    seen = _watch(monkeypatch, decode_pipeline)
     results = batch.decode_batch([s1, s2, s1], device=CPU)
     assert seen == [s2]
     for (out, desc, err), stream in zip(results, [s1, s2, s1]):
         assert err is None
         want, _ = oracle.decode(stream)
         np.testing.assert_array_equal(out, want)
+
+
+def test_decode_batch_unconverged_v1_goes_to_the_scan(monkeypatch):
+    """A stream on which v1 does not converge either (capped at one
+    iteration here) goes on to the sequential decoder, exact."""
+    from qoi_tpu_torch.models import scan_codec
+
+    s = _noncanonical()
+    monkeypatch.setattr(decode_pipeline, "_MAX_FIXPOINT_ITERS", 1)
+    seen_v1 = _watch(monkeypatch, decode_pipeline)
+    seen_scan = _watch(monkeypatch, scan_codec)
+    (out, _, err), = batch.decode_batch([s], device=CPU)
+    assert err is None and seen_v1 == [s] and seen_scan == [s]
+    np.testing.assert_array_equal(out, oracle.decode(s)[0])
 
 
 @pytest.mark.parametrize("channels", [3, 4])

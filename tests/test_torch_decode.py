@@ -18,7 +18,7 @@ from qoi_tpu_torch import format as fmt
 from qoi_tpu_torch import oracle
 from qoi_tpu_torch.kernels import block_maps as tbm
 from qoi_tpu_torch.kernels import expand as texpand
-from qoi_tpu_torch.models import buckets
+from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.models import decode_v3 as td3
 from qoi_tpu_torch.ops import fsm as tfsm
 from torch_testutil import (as_u32, assert_same, e2e_cases, e2e_image,
@@ -35,7 +35,7 @@ def _stream(img):
 
 def _padded(stream):
     raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
-    pad = np.zeros((buckets.bucket_size(len(raw)),), np.uint8)
+    pad = np.zeros((decode_pipeline.bucket_size(len(raw)),), np.uint8)
     pad[: len(raw)] = raw
     return pad, len(stream) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
 
@@ -186,7 +186,7 @@ def test_expand_twin_matches_jax_xla_and_pallas_interpret(streams, cores,
     expand kernel in interpret mode at the production geometry (accum
     "xw", tile 4096 / sub 128 / nblocks 4)."""
     px, _, _, pix_off = cores[case][:4]
-    npc = buckets.bucket_size(streams[case]["img"].shape[0]
+    npc = decode_pipeline.bucket_size(streams[case]["img"].shape[0]
                               * streams[case]["img"].shape[1])
     want_xla = jexpand.expand_px_xla(jnp.asarray(pix_off), jnp.asarray(px),
                                      npc)

@@ -13,7 +13,7 @@ from qoi_tpu.models import decode_v3 as jd3
 from qoi_tpu_torch import format as fmt
 from qoi_tpu_torch import oracle
 from qoi_tpu_torch.kernels import slide as tslide
-from qoi_tpu_torch.models import buckets
+from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.models import decode_v3 as td3
 from qoi_tpu_torch.utils import testimages
 from torch_testutil import as_u32, assert_same, to_torch
@@ -39,7 +39,8 @@ def cores():
         h, w, ch = img.shape
         s = oracle.encode(img, fmt.StreamDesc(w, h, ch))
         raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
-        pad = np.zeros(max(buckets.bucket_size(len(raw)), 4096), np.uint8)
+        pad = np.zeros(max(decode_pipeline.bucket_size(len(raw)), 4096),
+                       np.uint8)
         pad[: len(raw)] = raw
         clen = len(s) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
         px, starts, _, pix_off, conv, _, _ = td3._decode_core(
@@ -49,7 +50,7 @@ def cores():
                          px=as_u32(px).astype(np.uint32),
                          starts=starts.numpy(),
                          pix_off=pix_off.numpy().astype(np.int32),
-                         npc=buckets.bucket_size(w * h))
+                         npc=decode_pipeline.bucket_size(w * h))
     return out
 
 

@@ -28,7 +28,7 @@ from qoi_tpu_torch import oracle
 from qoi_tpu_torch._bits import to_i32
 from qoi_tpu_torch.kernels import block_maps as tbm
 from qoi_tpu_torch.kernels import expand as texpand
-from qoi_tpu_torch.models import buckets
+from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.models import decode_v3 as td3
 from torch_testutil import as_u32, assert_same, to_torch
 
@@ -95,7 +95,7 @@ def _stream_planes(img):
     h, w, ch = img.shape
     stream = oracle.encode(img, fmt.StreamDesc(w, h, ch))
     raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
-    pad = np.zeros(buckets.bucket_size(len(raw)), np.uint8)
+    pad = np.zeros(decode_pipeline.bucket_size(len(raw)), np.uint8)
     pad[: len(raw)] = raw
     starts, cls, r6, d32, lit32, npix = (np.asarray(x) for x in _fields_jit(
         jnp.asarray(pad), jnp.int32(len(stream) - 22)))
@@ -195,7 +195,7 @@ def _stream_records(dense):
     img = testimages.palette_alpha(80, 48, colors=40)
     stream = oracle.encode(img, fmt.StreamDesc(80, 48, 4))
     raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
-    pad = np.zeros(max(buckets.bucket_size(len(raw)), 4096), np.uint8)
+    pad = np.zeros(max(decode_pipeline.bucket_size(len(raw)), 4096), np.uint8)
     pad[: len(raw)] = raw
     px, starts, _, pix_off, conv, _, _ = td3._decode_core(to_torch(pad),
                                                           len(stream) - 22)
@@ -205,7 +205,7 @@ def _stream_records(dense):
         assert (off.numpy() == td3._INF).any()
     else:
         off, px32 = pix_off.int(), to_i32(px)
-    return off.numpy(), px32.numpy(), buckets.bucket_size(80 * 48)
+    return off.numpy(), px32.numpy(), decode_pipeline.bucket_size(80 * 48)
 
 
 _FILL_CASES = {

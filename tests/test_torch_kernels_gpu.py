@@ -19,10 +19,12 @@ from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as kbm
 from qoi_tpu_torch.kernels import encode_stage as kstage
 from qoi_tpu_torch.kernels import expand as kexp
+from qoi_tpu_torch.kernels import numeric_scan as kns
 from qoi_tpu_torch.kernels import pack as kpack
 from qoi_tpu_torch.kernels import scan_codec as kscan
 from qoi_tpu_torch.kernels import slide as kslide
-from qoi_tpu_torch.models import buckets, decode_v3, pipeline, scan_codec
+from qoi_tpu_torch.models import (decode_pipeline, decode_v3, pipeline,
+                                  scan_codec)
 from qoi_tpu_torch.ops import compact
 from qoi_tpu_torch.utils import testimages
 from scan_cases import (DECODE_CASES, ENCODE_CASES, decode_case,
@@ -142,7 +144,7 @@ def _stream_planes(img, dev):
     h, w, ch = img.shape
     s = oracle.encode(img, fmt.StreamDesc(w, h, ch))
     raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
-    m = buckets.bucket_size(len(raw))
+    m = decode_pipeline.bucket_size(len(raw))
     pad = np.zeros(m, np.uint8)
     pad[: len(raw)] = raw
     b = decode_v3._scan_block_len(m)
@@ -192,6 +194,100 @@ def test_block_maps_kernel_surgical_shape(dev):
     for got, want in zip(kbm.block_maps(*planes),
                          kbm.block_maps_plain(*planes)):
         _same(got, want)
+
+
+@pytest.mark.parametrize("case,w,h", [
+    ("mixed", 160, 96), ("palette_alpha", 160, 96), ("mixed", 1920, 1080)])
+def test_numeric_scan_kernel_matches_twin(dev, case, w, h):
+    """A stream's round-1 planes and block entry states (from the seed,
+    then from a random entry state): px after every position and the exit
+    state. At 1080p the twin walks 8192 positions of 512 lanes."""
+    img = (testimages.mixed(w, h, 4) if case == "mixed"
+           else testimages.palette_alpha(w, h))
+    planes = _stream_planes(img, dev)
+    root, val, _, _ = kbm.block_maps(*planes)
+    rng = np.random.default_rng(w)
+    e65 = torch.from_numpy(rng.integers(0, 2**32, 65, dtype=np.uint64)
+                           .astype(np.int64)).to(dev)
+    for entry65 in (None, e65):
+        entry = to_i32(decode_v3._compose_entry_states(root, val, entry65))
+        for got, want in zip(kns.numeric_scan(*planes, entry),
+                             kns.numeric_scan_plain(*planes, entry)):
+            _same(got, want)
+
+
+@pytest.mark.parametrize("b,nb", [(16, 1), (16, 33), (48, 7), (8192, 77)])
+def test_numeric_scan_kernel_random_planes(dev, b, nb):
+    """Every cls value 0..7 on random slots, random entry states; nb = 1,
+    7, 33 and 77 leave part of a 32-lane block empty, b = 48 and 8192 run
+    the 16-position prefetch ring over full and ragged chunks."""
+    rng = np.random.default_rng(b + nb)
+    meta = (rng.integers(0, 8, (b, nb))
+            | rng.integers(0, 64, (b, nb)) << 3).astype(np.int32)
+    d32, lit32 = (rng.integers(-2**31, 2**31, (b, nb)).astype(np.int32)
+                  for _ in range(2))
+    entry = rng.integers(-2**31, 2**31, (65, nb)).astype(np.int32)
+    args = [torch.from_numpy(x).to(dev) for x in (meta, d32, lit32, entry)]
+    for got, want in zip(kns.numeric_scan(*args),
+                         kns.numeric_scan_plain(*args)):
+        _same(got, want)
+
+
+def test_numeric_scan_build_failure_raises_without_fallback(dev,
+                                                            monkeypatch):
+    """A kernel library that does not build makes the wrapper raise on a
+    CUDA tensor; the plain twin is never taken there."""
+    def no_build():
+        raise RuntimeError("nvcc failed: forced")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(kns, "numeric_scan_plain", None)  # must not be hit
+    z = torch.zeros((16, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kns.numeric_scan(z, z, z, torch.zeros((65, 4), dtype=torch.int32,
+                                              device=dev))
+
+
+def test_resolve_scan_apply_on_card(dev):
+    """`_resolve(apply="scan")` (block_maps, compose, numeric_scan) equals
+    the vectorized apply on the card and the CPU path."""
+    img = testimages.mixed(640, 360, 4, seed=2)
+    s = oracle.encode(img, fmt.StreamDesc(640, 360, 4))
+    raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
+    m = decode_pipeline.bucket_size(len(raw))
+    pad = np.zeros(m, np.uint8)
+    pad[: len(raw)] = raw
+    b = decode_v3._scan_block_len(m)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        f = decode_v3._fields(torch.from_numpy(pad).to(d), len(s) - 22)
+        starts, cls, r6, d32, lit32, npix = f
+        w0, _ = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+        w0 = torch.where(starts, w0, 0)
+        outs[d.type] = [decode_v3._resolve(cls, r6, w0, d32, lit32, m, b,
+                                           apply=a) for a in ("scan",
+                                                              "vector")]
+    for got in outs["cuda"] + outs["cpu"]:
+        for x, y in zip(got, outs["cpu"][1]):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("engine", ["v1", "v2"])
+@pytest.mark.parametrize("ch", [3, 4])
+def test_cross_check_decoders_on_card_match_oracle(dev, engine, ch):
+    """The v1 and v2 decoders on the card: the edge-case suite and the
+    adversarial stream, pixel-identical to the oracle."""
+    from qoi_tpu_torch.models import decode_v2
+
+    dec = decode_pipeline.decode if engine == "v1" else decode_v2.decode
+    streams = [oracle.encode(img, fmt.StreamDesc(img.shape[1], img.shape[0],
+                                                 ch))
+               for img in testimages.edge_case_suite(ch).values()]
+    streams.append(fmt.pack_header(fmt.StreamDesc(640, 480, 4))
+                   + b"\x05" * (640 * 480) + fmt.TRAILER)
+    for s in streams:
+        np.testing.assert_array_equal(dec(s, 0, dev)[0], oracle.decode(s)[0])
 
 
 def _random_state(seed):
@@ -355,9 +451,9 @@ def test_dense_decode_on_card_matches_cpu_and_source(dev, case):
            else testimages.photo(160, 120, 4))
     s = oracle.encode(img, fmt.StreamDesc(160, 120, 4))
     raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
-    pad = np.zeros(max(buckets.bucket_size(len(raw)), 4096), np.uint8)
+    pad = np.zeros(max(decode_pipeline.bucket_size(len(raw)), 4096), np.uint8)
     pad[: len(raw)] = raw
-    npc = buckets.bucket_size(160 * 120)
+    npc = decode_pipeline.bucket_size(160 * 120)
     cpu, _, _ = decode_v3._decode_device(torch.from_numpy(pad), len(s) - 22,
                                          npc, dense=True)
     gpu, conv, _ = decode_v3._decode_device(torch.from_numpy(pad).to(dev),
@@ -543,11 +639,14 @@ def test_wrappers_count_launches(dev):
     kscan.encode_scan(z[0])
     kscan.decode_scan(z[0].view(torch.uint8), 4, 4,
                       torch.zeros(65, dtype=torch.int32, device=dev))
+    kns.numeric_scan(z, z, z, torch.zeros((65, 8), dtype=torch.int32,
+                                          device=dev))
     torch.cuda.synchronize()
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
                                "block_maps": 1, "slide_val2": 1,
                                "place_words": 1, "encode_stage": 1,
-                               "encode_scan": 1, "decode_scan": 1}
+                               "encode_scan": 1, "decode_scan": 1,
+                               "numeric_scan": 1}
 
 
 @pytest.mark.parametrize("ch", [3, 4])

@@ -26,6 +26,7 @@ from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as tbm
 from qoi_tpu_torch.kernels import encode_stage as tstage
 from qoi_tpu_torch.kernels import expand as texpand
+from qoi_tpu_torch.kernels import numeric_scan as tns
 from qoi_tpu_torch.kernels import pack as tpack
 from qoi_tpu_torch.kernels import scan_codec as tscan
 from qoi_tpu_torch.kernels import slide as tslide
@@ -68,12 +69,13 @@ sys.modules["qoi_tpu"] = None
 import numpy as np
 import qoi_tpu_torch
 from qoi_tpu_torch import (config, format, oracle, io, cli, corpus, bench)
-from qoi_tpu_torch.models import (pipeline, decode_v3, buckets, streamed,
-                                  scan_codec, batch)
+from qoi_tpu_torch.models import (pipeline, decode_v3, decode_pipeline,
+                                  decode_v2, streamed, scan_codec, batch)
 from qoi_tpu_torch.utils import profiling
-from qoi_tpu_torch.ops import scans, table, compact, fsm
+from qoi_tpu_torch.ops import scans, table, compact, fsm, link
 from qoi_tpu_torch.kernels import (slide, expand, block_maps, pack,
-                                   encode_stage, scan_codec, _build)
+                                   encode_stage, scan_codec, numeric_scan,
+                                   _build)
 from qoi_tpu_torch.utils import testimages
 img = testimages.mixed(23, 9, 4)
 s = qoi_tpu_torch.encode(img, device="cpu")
@@ -180,7 +182,7 @@ def test_surfaces_default_to_cuda_and_raise_without_a_card(name, tmp_path):
 @pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps",
                                     "slide_val2", "place_words",
                                     "encode_stage", "encode_scan",
-                                    "decode_scan"])
+                                    "decode_scan", "numeric_scan"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises: here
     a 'meta' tensor must raise instead of taking the plain twin."""
@@ -202,6 +204,9 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
             tscan.decode_scan(z[0].view(torch.uint8), 4, 4,
                               torch.zeros(65, dtype=torch.int32,
                                           device="meta"))
+        elif kernel == "numeric_scan":
+            tns.numeric_scan(z, z, z, torch.zeros((65, 8), dtype=torch.int32,
+                                                  device="meta"))
         else:
             tstage.encode_stage_pallas(
                 torch.zeros((1024, 4), dtype=torch.uint8, device="meta"), 9)
@@ -227,6 +232,8 @@ def test_wrappers_check_shapes():
         tscan.encode_scan(z)
     with pytest.raises(ValueError):
         tscan.decode_scan(z[0].view(torch.uint8), 4, 4, z[0])
+    with pytest.raises(ValueError):
+        tns.numeric_scan(z, z, z, z)
 
 
 def test_launch_counts_start_at_zero_and_reset():
@@ -234,7 +241,7 @@ def test_launch_counts_start_at_zero_and_reset():
     assert set(_build.launches) == {"slide_val", "expand_px", "block_maps",
                                     "slide_val2", "place_words",
                                     "encode_stage", "encode_scan",
-                                    "decode_scan"}
+                                    "decode_scan", "numeric_scan"}
     assert all(v == 0 for v in _build.launches.values())
 
 

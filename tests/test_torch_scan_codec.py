@@ -121,12 +121,22 @@ def test_decode_scan_default_state_is_the_seed():
 def test_ladder_decodes_through_the_scan_without_the_native_build(
         monkeypatch):
     """The adversarial stream fails the device fixpoint; without the C++
-    decoder the ladder's floor is the sequential scan."""
+    decoder the ladder's floor is the sequential scan, behind the v1
+    decoder (capped here at one iteration, on which it does not
+    converge)."""
+    from qoi_tpu_torch.models import decode_pipeline
+
     w, h = 64, 32
     data = fmt.pack_header(fmt.StreamDesc(w, h, 4)) + b"\x05" * (w * h) \
         + fmt.TRAILER
     want = oracle.decode(data)[0]
     monkeypatch.setattr(oracle, "available", lambda: False)
     monkeypatch.setattr(oracle, "decode", None)   # must not be reached
+    monkeypatch.setattr(decode_pipeline, "_MAX_FIXPOINT_ITERS", 1)
+    scan = tscan.decode
+    seen = []
+    monkeypatch.setattr(tscan, "decode",
+                        lambda *a: seen.append(a[0]) or scan(*a))
     got, _ = qoi_tpu_torch.decode(data, device="cpu")
     np.testing.assert_array_equal(got, want)
+    assert seen == [data]
