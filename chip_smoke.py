@@ -9,7 +9,9 @@ It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
 in parallel), holds each of the nine kernels against its plain PyTorch
 twin (results must be exactly equal): the six parallel ones and the
 numeric re-scan at the shapes their paths give them at 4K, the two
-sequential codec scans at 65,536 pixels from a random entry state.
+sequential codec scans at 65,536 pixels from a random entry state;
+numeric_scan also at a 4 MiB streamed tile's shape, (8192, 512), timed, and
+the ptxas report of its build (registers, shared memory, spills).
 decode_scan also runs on a whole 4 MiB streamed tile from its real entry
 state, where its pixels must equal the source frame's and the fixpoint's
 and its exit state the one those pixels imply. Then it drives seven paths
@@ -193,9 +195,17 @@ def main() -> int:
     so = _build.build()
     _build.lib()
     log(f"build: {so.name} in {time.perf_counter() - t0:.3f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
+    build_log = so.with_suffix(".log").read_text().splitlines()
+    for line in build_log:
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
+    at = next(i for i, line in enumerate(build_log)
+              if "Compiling entry" in line and "numeric_scan_kernel" in line)
+    end = next((i for i in range(at + 1, len(build_log))
+                if "Compiling entry" in build_log[i]), len(build_log))
+    log("numeric_scan_kernel, nvcc -Xptxas -v: " + "; ".join(
+        line.split(":", 1)[-1].strip() for line in build_log[at + 1: end]
+        if any(k in line for k in ("registers", "smem", "spill"))))
     phase_done("card and build")
 
     desc4 = fmt.StreamDesc(W, H, 4)
@@ -266,18 +276,23 @@ def main() -> int:
     del val, aux
     phase_done("slide_val vs twin")
 
+    def round1_planes(data, clen):
+        """Pass 1's position-major (meta, d32, lit32) planes of a padded
+        stream body in its first round (the initial w)."""
+        m = data.shape[0]
+        b = decode_v3._scan_block_len(m)
+        starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
+        w0, _ = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+        w0 = torch.where(starts, w0, 0)
+        return (decode_v3._pos_major(
+                    (cls | (r6 << 9) | (w0 << 3)).to(torch.int32), m, b),
+                decode_v3._pos_major(to_i32(d32), m, b),
+                decode_v3._pos_major(to_i32(lit32), m, b))
+
     # B and C: the decode intermediates of a 4K mixed stream
     data, clen = padded_body(mixed_streams[0])
     m = data.shape[0]
-    b = decode_v3._scan_block_len(m)
-    starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
-    w0, _ = decode_v3._initial_w(cls, r6, d32, lit32, npix)
-    w0 = torch.where(starts, w0, 0)
-    meta = decode_v3._pos_major(
-        (cls | (r6 << 9) | (w0 << 3)).to(torch.int32), m, b)
-    d32_p = decode_v3._pos_major(to_i32(d32), m, b)
-    lit32_p = decode_v3._pos_major(to_i32(lit32), m, b)
-    del starts, cls, r6, d32, lit32, npix, w0
+    meta, d32_p, lit32_p = round1_planes(data, clen)
     got = kbm.block_maps(meta, d32_p, lit32_p)
     want, plain_ms = sync_ms(lambda: kbm.block_maps_plain(meta, d32_p,
                                                           lit32_p))
@@ -312,6 +327,30 @@ def main() -> int:
         plain_ms, 16 * meta.numel() + 4 * 65 * nb + 4 * 65,
         20 * meta.numel())
     del meta, d32_p, lit32_p, entry
+    # ... and at a streamed tile's shape: a 1080p mixed stream padded to
+    # 4 MiB, (b, nb) = (8192, 512), its round-1 planes and entry states
+    s1080 = oracle.encode(testimages.mixed(1920, 1080, 4, seed=3),
+                          fmt.StreamDesc(1920, 1080, 4))
+    raw = np.frombuffer(s1080, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(TILE, np.uint8)
+    pad[: len(raw)] = raw
+    planes = round1_planes(torch.from_numpy(pad).to(dev),
+                           len(raw) - fmt.TRAILER_SIZE)
+    root, val, _, _ = kbm.block_maps(*planes)
+    entry = to_i32(decode_v3._compose_entry_states(root, val))
+    got = kns.numeric_scan(*planes, entry)
+    want, plain_ms = sync_ms(lambda: kns.numeric_scan_plain(*planes, entry))
+    for i, (g, w_) in enumerate(zip(got, want)):
+        compare(f"numeric_scan tile[{i}]", g, w_)
+    ms = cuda_ms(lambda: kns.numeric_scan(*planes, entry), 20)
+    bms, by = bound(16 * planes[0].numel() + 4 * 65 * planes[0].shape[1]
+                    + 4 * 65, 20 * planes[0].numel())
+    log(f"numeric_scan at a streamed tile's shape (b, nb) = "
+        f"{tuple(planes[0].shape)} (a 1080p mixed stream padded to 4 MiB, "
+        f"all lanes compared): equal to twin; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms (one run, host clock); bound {bms:.4f} ms "
+        f"({by})")
+    del planes, root, val, entry, got, want
     phase_done("numeric_scan vs twin")
 
     px, starts, _, pix_off, conv, _, _ = decode_v3._decode_core(data, clen)

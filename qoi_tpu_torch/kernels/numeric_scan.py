@@ -13,9 +13,19 @@ Returns (px (b, nb), exit65 (65,)), int32 bit patterns: the px after every
 position, and the state (px, slots) after the LAST lane's last position,
 the stream's exit state.
 
-The kernel runs one thread a lane with the slots in shared memory
-(csrc/numeric_scan.cu); the twin is a Python loop over the b positions,
-each step vectorized over the nb lanes.
+The kernel (csrc/numeric_scan.cu) is bound by bytes on the H100 (16 B a
+position: 235 MB, 0.070 ms at 4K). Walked one step at a time, a lane is a
+chain of b dependent steps through its slot table, and that chain, not the
+bytes, would set the time. An INDEX writes back the slot it read, so it
+takes the px of the last earlier live non-INDEX step of its slot, and every
+other step is a map of px that composes: the kernel gives each lane a warp
+that resolves 32 positions a window (a segmented scan of the maps, the
+INDEX values as fixpoint rounds of shuffles, the slot table in shared
+memory), and each block of 8 lanes reads the position-major planes as
+whole rows through a cp.async ring of tiles. On the card the window's
+instructions (the scan's shuffle steps first), not the bytes, bound the
+redesigned kernel (PERF.md). The twin is a Python loop over the b
+positions, each step vectorized over the nb lanes.
 """
 from __future__ import annotations
 

@@ -27,6 +27,8 @@ from qoi_tpu_torch.models import (decode_pipeline, decode_v3, pipeline,
                                   scan_codec)
 from qoi_tpu_torch.ops import compact
 from qoi_tpu_torch.utils import testimages
+from numeric_scan_cases import (all_index_planes, deep_chain_planes,
+                                random_planes)
 from scan_cases import (DECODE_CASES, ENCODE_CASES, decode_case,
                         encode_case, random_state)
 
@@ -216,18 +218,31 @@ def test_numeric_scan_kernel_matches_twin(dev, case, w, h):
             _same(got, want)
 
 
-@pytest.mark.parametrize("b,nb", [(16, 1), (16, 33), (48, 7), (8192, 77)])
-def test_numeric_scan_kernel_random_planes(dev, b, nb):
-    """Every cls value 0..7 on random slots, random entry states; nb = 1,
-    7, 33 and 77 leave part of a 32-lane block empty, b = 48 and 8192 run
-    the 16-position prefetch ring over full and ragged chunks."""
-    rng = np.random.default_rng(b + nb)
-    meta = (rng.integers(0, 8, (b, nb))
-            | rng.integers(0, 64, (b, nb)) << 3).astype(np.int32)
-    d32, lit32 = (rng.integers(-2**31, 2**31, (b, nb)).astype(np.int32)
-                  for _ in range(2))
-    entry = rng.integers(-2**31, 2**31, (65, nb)).astype(np.int32)
-    args = [torch.from_numpy(x).to(dev) for x in (meta, d32, lit32, entry)]
+@pytest.mark.parametrize("b,nb,kind", [
+    (16, 1, "random"), (16, 33, "random"), (48, 7, "random"),
+    (8192, 77, "random"), (8192, 512, "random"), (33, 9, "random"),
+    (8192, 77, "index")])
+def test_numeric_scan_kernel_random_planes(dev, b, nb, kind):
+    """Every cls value 0..7 on random slots with random r6 bits, random
+    entry states; or every position an INDEX. nb = 1, 7, 9, 33 and 77
+    leave part of an 8-lane block empty, b = 16 is under a window, 33 and
+    48 end in a ragged window, 8192 runs 128 tiles through the ring;
+    (8192, 512) is a 4 MiB streamed tile's shape."""
+    make = random_planes if kind == "random" else all_index_planes
+    args = [torch.from_numpy(x).to(dev) for x in make(b, nb, b + nb)]
+    for got, want in zip(kns.numeric_scan(*args),
+                         kns.numeric_scan_plain(*args)):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("b,nb", [(64, 9), (8192, 77)])
+def test_numeric_scan_kernel_deep_chain(dev, b, nb):
+    """A first window of every lane holding a chain of DEEP INDEX steps,
+    each hanging on the one before through an ADD writer: DEEP + 1
+    fixpoint rounds in one window (tests/test_torch_numeric_scan_design.py
+    counts them)."""
+    args = [torch.from_numpy(x).to(dev)
+            for x in deep_chain_planes(b, nb, 7)]
     for got, want in zip(kns.numeric_scan(*args),
                          kns.numeric_scan_plain(*args)):
         _same(got, want)
