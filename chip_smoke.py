@@ -11,10 +11,11 @@ twin (results must be exactly equal): the six parallel ones and the
 numeric re-scan at the shapes their paths give them at 4K, the two
 sequential codec scans at 65,536 pixels from a random entry state;
 numeric_scan also at a 4 MiB streamed tile's shape, (8192, 512), timed, and
-the ptxas report of its build (registers, shared memory, spills).
+the ptxas report of its build (registers, shared memory, spills);
+slide_val also at a sequence-parallel tile's shape (405, 40960).
 decode_scan also runs on a whole 4 MiB streamed tile from its real entry
 state, where its pixels must equal the source frame's and the fixpoint's
-and its exit state the one those pixels imply. Then it drives seven paths
+and its exit state the one those pixels imply. Then it drives eight paths
 through the port's public functions, each with the launch counts set to 0
 just before it and read just after:
 
@@ -62,6 +63,17 @@ just before it and read just after:
      this script, which must reach v1 on the adversarial stream, beside
      the native decoder's time. All pixel-identical to the sources or the
      oracle;
+  8. the sequence-parallel codec (qoi_tpu_torch.parallel): S = 4 ranks in
+     one gloo process group, spawned processes that share cuda:0 (started
+     while the streamed inputs are prepared), each running
+     parallel.tiled.encode_tiled and parallel.tiled_decode.decode_tiled
+     on the 7680x4320 RGBA `mixed` frame of path 5 (read from a temporary
+     directory), and tiled_decode._decode_expand_device directly, whose
+     `conv` must hold on every shard; every rank's stream must equal the
+     oracle's and its pixels the source's; then
+     parallel.dryrun.dryrun_multichip(4) on the same group, a (2, 2) mesh.
+     A rank that fails or gives no answer within the pool's 300 s fails
+     the script;
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
@@ -73,7 +85,11 @@ decode (one photo and one mixed stream, every step of _decode_core, the
 surgical round beside a full second round, and the expand); the
 rates, per-tile times and peak device memory of the streamed path; and
 the user surfaces' rates beside the facade loop's on the same frames,
-the CLI subprocess's wall seconds and the corpus summary. One
+the CLI subprocess's wall seconds and the corpus summary; for path 8 the
+ms of each direction on every rank, each rank's phase and collective
+seconds and collectives (gloo on the CUDA tensors; none is staged through
+the host), fixpoint rounds and peak device memory. The ranks' kernel launches count with the
+parent's. One
 JSON line lists the kernels. The last line is the JSON result object.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
@@ -89,6 +105,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -101,6 +118,10 @@ SCAN_PX = 1 << 16
 #: the streamed path's tile (pixels for encode, bytes for decode)
 TILE = 1 << 22
 SEEDS = range(3, 3 + NFRAMES)
+#: path 8: ranks of the sequence-parallel codec (sharing the one card),
+#: and the seconds the parent waits for their answer to one call
+SEQ_RANKS = 4
+SEQ_TIMEOUT_S = 300
 
 #: the H100 SXM data sheet at the full 700 W limit: HBM bandwidth, and the
 #: float32 non-tensor peak, taken as the rate of the kernels' 32-bit
@@ -143,6 +164,77 @@ def bound(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def seq_parallel_rank(tmp: str, width: int, height: int,
+                      device: str = "cuda") -> dict:
+    """One rank of path 8, run in a spawned process of the rank pool: the
+    8K frame and its oracle stream from `tmp`, a warm-up on a small frame,
+    then on the same (1, S) mesh the timed encode_tiled and decode_tiled
+    and the sharded decode with its expansion called directly. Returns
+    the stream, a digest of the pixels (rank 0 also saves them to `tmp`),
+    `conv`, the times, the mesh's counters of each run, this process's
+    kernel launches and its peak device memory. `device` "cpu" rehearses
+    the path without a card."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from qoi_tpu_torch import format as fmt
+    from qoi_tpu_torch.kernels import _build
+    from qoi_tpu_torch.parallel import sharding, tiled, tiled_decode
+    from qoi_tpu_torch.utils import testimages
+
+    tmpd = pathlib.Path(tmp)
+    frame = np.load(tmpd / "frame.npy")
+    stream = (tmpd / "frame.qoi").read_bytes()
+    desc = fmt.StreamDesc(width, height, 4)
+    world = dist.get_world_size()
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    small = testimages.mixed(512, 256, 4, seed=3)
+    mesh = sharding.make_mesh(1, world, device)
+    tiled_decode.decode_tiled(tiled.encode_tiled(
+        small, fmt.StreamDesc(512, 256, 4), mesh, device), mesh, 0, device)
+    if sharding.make_mesh(1, world, device) is not mesh:
+        raise RuntimeError("make_mesh made a second mesh in one group")
+    _build.reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        """(fn(), its ms and the mesh's counters), the ranks started
+        together by a barrier."""
+        mesh.stats.reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        return got, dict(ms=(time.perf_counter() - t0) * 1e3,
+                         stats=mesh.stats.as_dict())
+
+    stream_out, enc = timed(lambda: tiled.encode_tiled(frame, desc, mesh,
+                                                       device))
+    (img, _), dec = timed(lambda: tiled_decode.decode_tiled(stream, mesh, 0,
+                                                            device))
+    if dist.get_rank() == 0:
+        np.save(tmpd / "px0.npy", img)
+    mesh.stats.reset()
+    local, clen, cap = tiled_decode.shard_bytes(stream, mesh.seq,
+                                                mesh.device)
+    _, conv = tiled_decode._decode_expand_device(local, clen, mesh.seq, cap)
+    sync()
+    return dict(encode=enc, decode=dec, stream=stream_out, conv=conv,
+                px_sha=hashlib.sha256(img.tobytes()).hexdigest(),
+                direct_rounds=mesh.stats.rounds,
+                launches=dict(_build.launches),
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                          if on_card else 0.0))
 
 
 def main() -> int:
@@ -213,12 +305,22 @@ def main() -> int:
     n = desc4.num_pixels
     npc = decode_pipeline.bucket_size(n)
     t0 = time.perf_counter()
-    mixed = [testimages.mixed(W, H, 4, seed=s) for s in SEEDS]
-    photo = [testimages.photo(W, H, 4, seed=s) for s in SEEDS]
-    photo_rgb = testimages.photo(W, H, 3, seed=3)
-    mixed_streams = [oracle.encode(f, desc4) for f in mixed]
-    photo_streams = [oracle.encode(f, desc4) for f in photo]
-    photo_rgb_stream = oracle.encode(photo_rgb, desc3)
+    # the frames are made and encoded on host threads: numpy and the
+    # oracle's C calls release the interpreter lock for most of the work
+    with ThreadPoolExecutor(8) as pool:
+        gen = ([pool.submit(testimages.mixed, W, H, 4, seed=k)
+                for k in SEEDS]
+               + [pool.submit(testimages.photo, W, H, 4, seed=k)
+                  for k in SEEDS]
+               + [pool.submit(testimages.photo, W, H, 3, seed=3)])
+        frames = [f.result() for f in gen]
+        streams = list(pool.map(
+            lambda fd: oracle.encode(*fd),
+            [(f, desc4) for f in frames[:-1]] + [(frames[-1], desc3)]))
+    mixed, photo = frames[:NFRAMES], frames[NFRAMES:2 * NFRAMES]
+    mixed_streams = streams[:NFRAMES]
+    photo_streams = streams[NFRAMES:2 * NFRAMES]
+    photo_rgb, photo_rgb_stream = frames[-1], streams[-1]
     log(f"inputs: {2 * NFRAMES + 1} 4K frames + oracle streams in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_done("4K inputs")
@@ -451,13 +553,23 @@ def main() -> int:
     cli_thread = threading.Thread(target=run_cli_subprocess)
     cli_thread.start()
 
+    # path 8's ranks start now too: their interpreters, CUDA contexts and
+    # process group come up while the host prepares the streamed inputs
+    from qoi_tpu_torch.parallel import dryrun
+    from qoi_tpu_torch.parallel.launch import RankPool
+
+    seq_pool = RankPool(SEQ_RANKS, device="cuda", timeout_s=SEQ_TIMEOUT_S)
+
     # the streamed path's inputs: two 8K frames and the adversarial stream
     t0 = time.perf_counter()
     desc8 = (fmt.StreamDesc(W8, H8, 4), fmt.StreamDesc(W8, H8, 3))
-    big = [("RGBA mixed", testimages.mixed(W8, H8, 4, seed=3), desc8[0]),
-           ("RGB photo", testimages.photo(W8, H8, 3, seed=3), desc8[1])]
-    big = [(label, frame, desc, oracle.encode(frame, desc))
-           for label, frame, desc in big]
+    with ThreadPoolExecutor(2) as pool:
+        big = list(pool.map(lambda x: (x[0], x[1](), x[2]), (
+            ("RGBA mixed", lambda: testimages.mixed(W8, H8, 4, seed=3),
+             desc8[0]),
+            ("RGB photo", lambda: testimages.photo(W8, H8, 3, seed=3),
+             desc8[1]))))
+        big = list(pool.map(lambda x: (*x, oracle.encode(x[1], x[2])), big))
     desc_adv = fmt.StreamDesc(4096, 4097, 4)
     adv_big = (fmt.pack_header(desc_adv) + b"\x05" * desc_adv.num_pixels
                + fmt.TRAILER)
@@ -468,7 +580,27 @@ def main() -> int:
     log(f"streamed inputs: 2 {W8}x{H8} frames + oracle streams, the "
         f"{desc_adv.width}x{desc_adv.height} adversarial stream, in "
         f"{time.perf_counter() - t0:.1f} s")
+    # path 8 reads the RGBA mixed frame and its stream from here
+    seq_ctx = tempfile.TemporaryDirectory()
+    seq_dir = pathlib.Path(seq_ctx.name)
+    np.save(seq_dir / "frame.npy", big[0][1])
+    (seq_dir / "frame.qoi").write_bytes(big[0][3])
     phase_done("streamed inputs")
+
+    # slide_val at the shape a rank's tile gives it in path 8: the events
+    # of tile 1 of the 8K mixed frame, B = 8,294,400 px in 20480-px rows
+    bt = -(-desc8[0].num_pixels // SEQ_RANKS)
+    tile = torch.from_numpy(np.ascontiguousarray(
+        big[0][1].reshape(-1, 4)[bt:2 * bt])).to(dev)
+    ch = pipeline.encode_stage_chunks(tile, bt)
+    ev = compact.wordsum_events(ch.lo, ch.hi, ch.lens, 20480)
+    val, aux = to_i32(ev.val), ev.aux.to(torch.int32)
+    err = compare("slide_val at the tile shape", kslide.slide_val(val, aux),
+                  kslide.slide_val_plain(val, aux))
+    log(f"kernel slide_val at a sequence-parallel tile's shape "
+        f"{tuple(val.shape)}: equal to twin (max abs err {err})")
+    del tile, ch, ev, val, aux
+    phase_done("slide_val at the tile shape")
 
     # Q: the sequential scans. Both kernels against their twins at SCAN_PX
     # pixels from a random entry state: decode_scan on the adversarial
@@ -692,13 +824,18 @@ def main() -> int:
     def counted(label, needs, fn):
         """Run one path with the launch counts and the peak-memory counter
         reset just before it, and read both just after (a path that resets
-        the counter itself returns its own peak in GiB)."""
+        the counter itself returns its own peak in GiB; a path run by
+        other processes returns (their peak, their summed launches), which
+        count with this process's)."""
         torch.cuda.synchronize()
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         own_peak = fn() or 0.0
         torch.cuda.synchronize()
         counts = dict(_build.launches)
+        if isinstance(own_peak, tuple):
+            own_peak, remote = own_peak
+            counts = {k: v + remote.get(k, 0) for k, v in counts.items()}
         peak = max(own_peak, torch.cuda.max_memory_allocated() / 2**30)
         log(f"launches in the {label} run: {counts}; peak device memory "
             f"{peak:.3f} GiB")
@@ -1163,7 +1300,70 @@ def main() -> int:
     tmp_ctx.cleanup()
     counted("cross-check engines", ("numeric_scan", "block_maps",
                                     "decode_scan"), cross_check_path)
-    log(f"launches over the seven counted runs: {counts_total}")
+
+    def seq_parallel_path():
+        import hashlib
+
+        label, frame, desc, stream = big[0]
+        torch.cuda.empty_cache()
+        res = seq_pool.run(seq_parallel_rank, str(seq_dir), W8, H8)
+        src_sha = hashlib.sha256(np.ascontiguousarray(frame).tobytes()) \
+            .hexdigest()
+        px0 = np.load(seq_dir / "px0.npy")
+        check(np.array_equal(px0, frame),
+              "sequence-parallel decode, rank 0: pixels differ")
+        for r, x in enumerate(res):
+            check(x["stream"] == stream,
+                  f"sequence-parallel encode, rank {r}: not the oracle's "
+                  "bytes")
+            check(x["px_sha"] == src_sha,
+                  f"sequence-parallel decode, rank {r}: pixels differ")
+            check(x["conv"] is True, f"rank {r}: _decode_expand_device did "
+                  "not converge")
+        nb = desc.num_pixels
+        for d in ("encode", "decode"):
+            ms = [x[d]["ms"] for x in res]
+            log(f"sequence-parallel {d} {W8}x{H8} {label}, {SEQ_RANKS} ranks "
+                f"on cuda:0: {'byte' if d == 'encode' else 'pixel'}-identical "
+                f"on every rank; ms per rank {[round(v, 3) for v in ms]}, "
+                f"slowest {max(ms):.3f} ms, {nb / 1e3 / max(ms):.3f} Mpx/s")
+            for r, x in enumerate(res):
+                st = x[d]["stats"]
+                op, nbytes, sec = max(st["calls"], key=lambda c: c[2])
+                log(f"  rank {r} {d}: phases (s) "
+                    f"{ {k: round(v, 4) for k, v in st['phase_s'].items()} }"
+                    f", collectives {st['collectives']} in "
+                    f"{st['collective_s']:.4f} s (the longest: {op} of "
+                    f"{nbytes / 1e6:.3f} MB, {sec:.4f} s)"
+                    + (f", fixpoint rounds {st['rounds']}" if st['rounds']
+                       else ""))
+        log("sequence-parallel collectives: gloo takes the CUDA tensors "
+            "(all_gather, all_reduce, reduce_scatter_tensor); staged through "
+            "the host: 0")
+        log(f"_decode_expand_device called directly: conv on every shard "
+            f"{[x['conv'] for x in res]}, fixpoint rounds "
+            f"{[x['direct_rounds'] for x in res]}; peak device memory per "
+            f"rank (GiB) {[round(x['peak_gib'], 3) for x in res]}")
+        t0 = time.perf_counter()
+        dry = seq_pool.run(dryrun.dryrun_multichip, SEQ_RANKS)
+        check(all(d == dry[0] for d in dry) and dry[0]["conv"] ==
+              [True] * SEQ_RANKS, f"dryrun_multichip: {dry}")
+        log(f"dryrun_multichip({SEQ_RANKS}) on the same group: mesh "
+            f"{dry[0]['mesh']}, stream totals {dry[0]['totals']}, grand "
+            f"total {dry[0]['grand']}, conv {dry[0]['conv']}; "
+            f"{time.perf_counter() - t0:.3f} s")
+        launches = {k: sum(x["launches"][k] for x in res) for k in
+                    res[0]["launches"]}
+        log(f"kernel launches of the {SEQ_RANKS} ranks' timed runs: "
+            f"{launches}")
+        return max(x["peak_gib"] for x in res), launches
+
+    try:
+        counted("sequence-parallel", ("slide_val",), seq_parallel_path)
+    finally:
+        seq_pool.close()
+        seq_ctx.cleanup()
+    log(f"launches over the eight counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]

@@ -17,8 +17,11 @@ the device's work.
 
 Flags (reference qoibench.c:297-304): --noverify --nowarmup --nopng
 --noencode --nodecode --norecurse --onlytotals, plus --json for a
-machine-readable summary line. --scaling is refused until the
-sequence-parallel codec is ported.
+machine-readable summary line. --scaling sweeps the sequence-parallel
+codec (parallel/) over sub-meshes of 1, 2, 4 ... ranks of a process
+group: every rank runs the command, inside a group it brings up with
+--coordinator HOST:PORT --num-processes N --process-id R (or one its
+caller initialized), and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -182,7 +185,84 @@ def synthetic_suite(kind: str = "full"):
     return testimages.bench_suite()
 
 
-def main(argv=None) -> int:
+#: (width, height) of the --scaling sweep's RGBA photo, the JAX sweep's
+SCALING_SHAPE = (1024, 512)
+
+
+def scaling_sweep(opts, shape=SCALING_SHAPE) -> int:
+    """Tiled (sequence-parallel) encode and decode of one RGBA photo of
+    `shape` (width, height) over sub-meshes of the first 1, 2, 4 ... ranks of the process
+    group; rank 0 prints Mpx/s and scaling efficiency per shard count
+    (N-shard Mpx/s over N times the 1-shard Mpx/s), the JAX sweep's
+    table and JSON keys. Unless --noverify, each shard count's stream
+    and pixels are checked before it is timed. Ranks that share a card
+    measure the codec's path, not a multi-GPU rate, and the output says
+    so."""
+    import torch.distributed as dist
+
+    from .models import pipeline
+    from .parallel import sharding, tiled, tiled_decode
+    from .utils import profiling, testimages
+
+    world = dist.get_world_size()
+    dev = sharding.rank_device(opts.device)
+    w, h = shape
+    img = testimages.photo(w, h, 4)
+    desc = fmt.StreamDesc(w, h, 4)
+    n_px = desc.num_pixels
+    # the stream to decode, on every rank (the one-device encode's bytes)
+    stream = pipeline.encode(img, desc, dev)
+    enc_mpps, dec_mpps = {}, {}
+    s = 1
+    while s <= world:
+        # every rank creates the sub-groups; the first s ranks measure
+        mesh = sharding.mesh_over(range(s), 1, s, dev)
+        if mesh is not None:
+            if not opts.noverify:   # the gate before timing
+                if tiled.encode_tiled(img, desc, mesh, dev) != stream:
+                    sys.exit(f"VERIFY: tiled encode over {s} shards "
+                             "mismatches the one-device stream")
+                got, _ = tiled_decode.decode_tiled(stream, mesh, 0, dev)
+                if not np.array_equal(got, img):
+                    sys.exit(f"VERIFY: tiled decode over {s} shards "
+                             "mismatches the source")
+            dt = profiling.device_sync_time(
+                lambda m=mesh: tiled.encode_tiled(img, desc, m, dev),
+                reps=opts.runs, device=dev)
+            enc_mpps[s] = n_px / 1e6 / dt
+            ddt = profiling.device_sync_time(
+                lambda m=mesh: tiled_decode.decode_tiled(stream, m, 0, dev),
+                reps=opts.runs, device=dev)
+            dec_mpps[s] = n_px / 1e6 / ddt
+        s *= 2
+    if dist.get_rank() != 0:
+        return 0
+
+    enc_eff = profiling.scaling_efficiency(enc_mpps)
+    dec_eff = profiling.scaling_efficiency(dec_mpps)
+    where = (f"{torch.cuda.device_count()} card(s), "
+             f"{torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
+             else "the CPU")
+    print(f"# scaling sweep (tiled single-stream, {w}x{h} RGBA), "
+          f"{world} ranks on {where}")
+    if dev.type != "cuda" or torch.cuda.device_count() < world:
+        print("# the ranks share one device: these rates measure the "
+              "sharded path, not a multi-device scaling")
+    print("shards   encode mpps   eff     decode mpps   eff")
+    for k in sorted(enc_mpps):
+        print(f"{k:6d}   {enc_mpps[k]:11.2f}   {enc_eff[k]:5.2f}   "
+              f"{dec_mpps[k]:11.2f}   {dec_eff[k]:5.2f}")
+    if opts.json:
+        print(json.dumps({
+            "encode_mpps": enc_mpps, "encode_eff": enc_eff,
+            "decode_mpps": dec_mpps, "decode_eff": dec_eff,
+        }, default=float))
+    return 0
+
+
+def main(argv=None, scaling_shape=SCALING_SHAPE) -> int:
+    """The harness on `argv`; `scaling_shape` is the --scaling sweep's
+    (width, height)."""
     ap = argparse.ArgumentParser(
         prog="qoi-torch-bench",
         description="QOI benchmark harness (PyTorch/CUDA engine)")
@@ -197,19 +277,45 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true",
                     help="print a JSON grand-total line")
     ap.add_argument("--scaling", action="store_true",
-                    help="sequence-parallel scaling sweep: refused until "
-                         "the sequence-parallel codec is ported")
+                    help="sequence-parallel scaling sweep: encode and "
+                         "decode one image tiled over 1, 2, 4 ... ranks of "
+                         "a process group; Mpx/s and scaling efficiency "
+                         "per shard count (ranks that share a card give no "
+                         "multi-device figure)")
+    ap.add_argument("--coordinator", metavar="HOST:PORT",
+                    help="with --scaling: bring up a gloo process group "
+                         "of --num-processes ranks, this one "
+                         "--process-id")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device of qoi-torch (default: cuda)")
     opts = ap.parse_args(argv)
     if opts.runs < 1:
         ap.error("runs must be >= 1")
-    if opts.scaling:
-        ap.error("--scaling needs the sequence-parallel codec, which the "
-                 "port does not have yet")
     from . import _device
 
     opts.device = _device(opts.device)
+    if opts.scaling:
+        import torch.distributed as dist
+
+        if opts.coordinator:
+            if opts.num_processes is None or opts.process_id is None:
+                ap.error("--coordinator needs --num-processes and "
+                         "--process-id")
+            from .corpus import init_distributed
+
+            init_distributed(opts.coordinator, opts.num_processes,
+                             opts.process_id)
+            try:
+                return scaling_sweep(opts, scaling_shape)
+            finally:
+                dist.destroy_process_group()
+        if not dist.is_initialized():
+            ap.error("--scaling runs in a torch.distributed process group: "
+                     "pass --coordinator, --num-processes and --process-id "
+                     "to every rank")
+        return scaling_sweep(opts, scaling_shape)
 
     images = []
     if opts.synthetic:

@@ -8,9 +8,10 @@ port reads `engine` and `verify` (io.write/read), `stream_tile_px`
 `table_block` is accepted and has no effect: it is the width of the JAX
 package's brute-force table (qoi_tpu/models/pipeline.py), while the
 port's table (ops/table.py) is sort-based and gives the same output for
-every width. `mesh` is refused away from None until the
-sequence-parallel codec is ported. The fields are kept so that a
-configuration means the same in both packages.
+every width. `mesh` = (data, seq) selects the sequence-parallel codec
+(parallel/), which needs an initialized process group of data*seq
+ranks. The fields are kept so that a configuration means the same in
+both packages.
 """
 from __future__ import annotations
 

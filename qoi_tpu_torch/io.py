@@ -27,8 +27,7 @@ def _as_config(engine: Union[str, "cfg.EngineConfig"],
     the facade's `config=`. With both a name and a config, the config's
     fields hold and a name other than the default "tpu" sets its engine
     (a config naming another engine is refused); an EngineConfig passed
-    as both `engine` and `config` is refused. `mesh` is refused until the
-    sequence-parallel codec is ported."""
+    as both `engine` and `config` is refused."""
     if isinstance(engine, cfg.EngineConfig):
         if config is not None:
             raise ValueError("pass the EngineConfig as engine= or as "
@@ -44,10 +43,6 @@ def _as_config(engine: Union[str, "cfg.EngineConfig"],
         raise ValueError(f"engine {engine!r} and config.engine "
                          f"{config.engine!r} disagree")
     c.validate()
-    if c.engine == "tpu" and c.mesh is not None:
-        raise NotImplementedError(
-            "EngineConfig mesh: the sequence-parallel codec is not ported "
-            "yet; leave mesh=None")
     return c
 
 
@@ -59,16 +54,26 @@ def _engine(engine: Union[str, "cfg.EngineConfig"], device
     "tpu" is the parallel device path (the name is kept so that an
     EngineConfig means the same in both packages): models/pipeline and
     models/decode_v3, and models/streamed above
-    qoi_tpu_torch.STREAM_THRESHOLD_PX pixels. "scan" is the sequential
-    codec (models/scan_codec, whose two walks are CUDA kernels on the
-    card), "oracle" the C++ host codec. `config.table_block` has no
-    effect: it is the width of the JAX package's brute-force table, and
-    the port's table (ops/table.py) is sort-based, with the same output
-    for every width."""
+    qoi_tpu_torch.STREAM_THRESHOLD_PX pixels; with `config.mesh` =
+    (data, seq) the sequence-parallel codec (parallel/tiled,
+    parallel/tiled_decode) over a mesh of the initialized process group,
+    which must have data*seq ranks, each of which calls it. "scan" is
+    the sequential codec (models/scan_codec, whose two walks are CUDA
+    kernels on the card), "oracle" the C++ host codec.
+    `config.table_block` has no effect: it is the width of the JAX
+    package's brute-force table, and the port's table (ops/table.py) is
+    sort-based, with the same output for every width."""
     import torch
 
     c = _as_config(engine)
     dev = torch.device(device)
+    if c.engine == "tpu" and c.mesh is not None:
+        from .parallel import sharding, tiled, tiled_decode
+
+        mesh = sharding.make_mesh(*c.mesh, device=dev)
+        return (lambda px, desc: tiled.encode_tiled(px, desc, mesh, dev),
+                lambda data, ch=0: tiled_decode.decode_tiled(
+                    data, mesh, ch, dev))
     if c.engine == "tpu":
         from . import _decode_tpu, _encode_tpu
 

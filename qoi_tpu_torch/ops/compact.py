@@ -1,9 +1,26 @@
-"""Word-sum compaction of encoder records (port of the
-`compact_words6_wordsum` path of qoi_tpu/ops/compact.py).
+"""Variable-length byte-record compaction (port of
+qoi_tpu/ops/compact.py): each pixel yields 0..6 stream bytes, packed
+contiguously at the exclusive prefix sum of their lengths.
 
-Every output word is the difference of two running sums of per-record
-word contributions, and every word has exactly one "boundary event" (the
-record owning its last byte) that defines its running sum. Events are
+  * `compact_words6_wordsum` -- the main path's word-sum compaction,
+    from packed record words; `compact_bytes6_wordsum` is the same from
+    (6, N) byte planes. Both slide their events with kernels/slide.py.
+  * `compact_bytes`, `compact_bytes6` -- one stable sort by target
+    offset, and its two-tier form (segment sorts + one windowed add)
+    over (K, N) byte planes: the encode of `pipeline.encode_device_split`.
+  * `compact_bytes_scatter`, `compact_bytes_hybrid`,
+    `compact_bytes_merge` -- a scatter, merge doubling + windowed add,
+    and log-depth pairwise merging by barrel shifts: differential
+    references.
+
+All return (buffer, total) with the same bytes in [0, total) as the JAX
+functions, and the same bytes past it wherever the JAX function defines
+them.
+
+Every output word of the word-sum compaction is the difference of two
+running sums of per-record word contributions, and every word has
+exactly one "boundary event" (the record owning its last byte) that
+defines its running sum. Events are
 built two slots per pixel in (nseg, 2*seg) rows, slid to their dense
 within-row positions (kernels/slide.py: the CUDA kernel on the card, its
 plain twin on the CPU), placed at global word offsets with one windowed
@@ -170,3 +187,177 @@ def _wordsum_assemble(val, wbase, total, v_all, capacity: int):
 
     words = (cends - torch.cat([cends.new_zeros(1), cends[:-1]])) & M32
     return to_i32(words), total
+
+
+def compact_bytes6_wordsum(
+    staging6: torch.Tensor, lens: torch.Tensor, capacity: int,
+    seg: int = 0, words_out: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`compact_words6_wordsum` from (6, N) uint8 byte planes: the
+    records' bytes packed to (lo, hi) words (kernels/pack._record_words),
+    then the same events, slide and assembly. Returns (buffer (capacity,)
+    uint8, or with `words_out` the (capacity//4,) int32 words, and total).
+    The JAX function makes a ragged N one segment; the port pads it with
+    l=0 records (`wordsum_events`), which gives the same bytes and keeps
+    the slide rows within the kernel's width."""
+    from ..kernels.pack import _record_words
+
+    lo, hl = _record_words(staging6, lens)
+    words, total = compact_words6_wordsum(lo, hl & 0xFFFF, lens, capacity,
+                                          seg=seg)
+    return (words if words_out else words.view(torch.uint8)), total
+
+
+def _fit(buf: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The first `capacity` entries of buf, zero-extended past its end."""
+    if capacity <= buf.shape[0]:
+        return buf[:capacity]
+    return torch.cat([buf, buf.new_zeros(capacity - buf.shape[0])])
+
+
+def _total(lens: torch.Tensor) -> torch.Tensor:
+    return lens.to(torch.int64).sum()
+
+
+def compact_bytes(staging: torch.Tensor, lens: torch.Tensor,
+                  capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based compaction. staging: (N, K) uint8; lens: (N,) with
+    lens[i] <= K; capacity: output size. Each staged byte is keyed by its
+    target offset (invalid bytes by N*K) and one stable sort orders them,
+    so the invalid bytes follow the stream in staging order, as after the
+    JAX stable `sort_key_val`."""
+    n, k = staging.shape
+    offs = exclusive_cumsum(lens)
+    col = torch.arange(k, device=staging.device)[None, :]
+    tgt = torch.where(col < lens[:, None], offs[:, None] + col, n * k)
+    order = torch.sort(tgt.reshape(-1), stable=True).indices
+    return _fit(staging.reshape(-1)[order], capacity), _total(lens)
+
+
+#: pixels per segment of `compact_bytes6`'s first tier
+_BYTES6_SEG = 4096
+
+
+def compact_bytes6(staging6: torch.Tensor, lens: torch.Tensor,
+                   capacity: int, seg: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-tier sort compaction over (K, N) uint8 byte planes.
+
+    Tier 1: each `seg`-pixel segment sorts its staged bytes by (offset
+    within the segment << 8 | byte): a pixel's bytes never leave its
+    segment's output range, so the local sorts are globally right, and
+    invalid bytes (keyed past the segment) sort last and are zeroed.
+    Tier 2: the segment rows add into the output at their global
+    offsets; overlapping windows only add zeros onto real bytes.
+    N not a multiple of seg, or below two segments: one global stable
+    sort, as `compact_bytes` over the plane-major order."""
+    k, n = staging6.shape
+    dev = staging6.device
+    offs = exclusive_cumsum(lens)
+    col = torch.arange(k, device=dev)[:, None]
+    valid = col < lens[None, :]
+    seg = seg or _BYTES6_SEG
+    if n % seg or n < 2 * seg:
+        tgt = torch.where(valid, offs[None, :] + col, n * k).reshape(-1)
+        order = torch.sort(tgt, stable=True).indices
+        packed = staging6.reshape(-1)[order]
+    else:
+        nseg = n // seg
+        w = seg * k
+        seg_off = offs.reshape(nseg, seg)[:, 0]
+        loc_off = offs - seg_off.repeat_interleave(seg)
+        key = torch.where(valid, loc_off[None, :] + col, w)
+        rows = ((key << 8) | staging6.to(torch.int64)).reshape(
+            k, nseg, seg).transpose(0, 1).reshape(nseg, w)
+        srt = torch.sort(rows, dim=1).values
+        seg_bytes = torch.where((srt >> 8) < w, srt & 0xFF, 0).to(torch.int32)
+        idx = seg_off[:, None] + torch.arange(w, device=dev)[None, :]
+        packed = torch.zeros(n * k + w, dtype=torch.int32, device=dev)
+        packed = packed.index_add_(0, idx.reshape(-1), seg_bytes.reshape(-1))
+        packed = packed.to(torch.uint8)
+    return _fit(packed, capacity), _total(lens)
+
+
+def compact_bytes_scatter(staging: torch.Tensor, lens: torch.Tensor,
+                          capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter compaction, the differential baseline: every valid byte to
+    its offset, bytes at or past `capacity` dropped."""
+    n, k = staging.shape
+    offs = exclusive_cumsum(lens)
+    col = torch.arange(k, device=staging.device)[None, :]
+    pos = offs[:, None] + col
+    keep = ((col < lens[:, None]) & (pos < capacity)).reshape(-1)
+    out = staging.new_zeros(capacity + 1)
+    # dropped bytes land in the spare last entry
+    out[torch.where(keep, pos.reshape(-1), capacity)] = staging.reshape(-1)
+    return out[:capacity], _total(lens)
+
+
+def _barrel_shift_right(x: torch.Tensor, shift: torch.Tensor,
+                        max_shift: int) -> torch.Tensor:
+    """Per-row right shift of byte rows by shift[r] in [0, max_shift], as
+    rolls selected by the bits of the shift; vacated bytes are zero and
+    bytes shifted past the row's end are dropped. x: (R, W) uint8."""
+    w = x.shape[-1]
+    keep_from = torch.arange(w, device=x.device)[None, :]
+    bit = 1
+    while bit <= max_shift and bit < w:
+        rolled = torch.where(keep_from >= bit, torch.roll(x, bit, dims=-1), 0)
+        x = torch.where(((shift & bit) != 0)[:, None], rolled, x)
+        bit <<= 1
+    return x
+
+
+def _merge_pairs(data: torch.Tensor, cur: torch.Tensor):
+    """One merge level: rows 2i and 2i+1 concatenate into one row twice as
+    wide (the second barrel-shifted past the first's length); an odd last
+    row rides along unpaired."""
+    rows, width = data.shape
+    half = rows // 2
+    pad = (0, width)
+    first = torch.nn.functional.pad(data[0:2 * half:2], pad)
+    second = torch.nn.functional.pad(data[1:2 * half:2], pad)
+    len1, len2 = cur[0:2 * half:2], cur[1:2 * half:2]
+    merged = first | _barrel_shift_right(second, len1, max_shift=width)
+    merged_len = len1 + len2
+    if rows % 2:
+        merged = torch.cat([merged, torch.nn.functional.pad(data[-1:], pad)])
+        merged_len = torch.cat([merged_len, cur[-1:]])
+    return merged, merged_len
+
+
+def _zero_tails(staging: torch.Tensor, lens: torch.Tensor):
+    col = torch.arange(staging.shape[1], device=staging.device)[None, :]
+    return (torch.where(col < lens[:, None], staging, 0),
+            lens.to(torch.int64))
+
+
+def compact_bytes_hybrid(staging: torch.Tensor, lens: torch.Tensor,
+                         capacity: int, width_stop: int = 3072
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge doubling up to `width_stop`-byte records, then one windowed
+    add at the records' offsets (window starts clamped to [0, capacity],
+    as the JAX scatter's CLIP mode): a merged record's tail is zero, so
+    overlapping windows only add zeros onto real bytes."""
+    data, cur = _zero_tails(staging, lens)
+    while data.shape[1] < width_stop and data.shape[0] > 1:
+        data, cur = _merge_pairs(data, cur)
+    rows, width = data.shape
+    start = exclusive_cumsum(cur).clamp(0, capacity)
+    idx = start[:, None] + torch.arange(width, device=data.device)[None, :]
+    out = torch.zeros(capacity + width, dtype=torch.int32, device=data.device)
+    out = out.index_add_(0, idx.reshape(-1),
+                         data.reshape(-1).to(torch.int32))
+    return (out[:capacity] & 0xFF).to(torch.uint8), cur.sum()
+
+
+def compact_bytes_merge(staging: torch.Tensor, lens: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compaction by log-depth pairwise merging of records, scatter-free.
+    staging: (N, K) uint8 with lens[i] valid leading bytes in row i.
+    Returns (flat row of the final width with the stream in [0, total),
+    total)."""
+    data, cur = _zero_tails(staging, lens)
+    while data.shape[0] > 1:
+        data, cur = _merge_pairs(data, cur)
+    return data[0], cur[0]

@@ -7,12 +7,17 @@ table entry. The JAX package answers that with gather-free blocked brute
 force, a TPU answer. Here one stable sort by slot groups each slot's
 positions in order, and the last-true-index of the sorted write mask finds
 every position's last earlier writer; hits and the final table follow
-with two gathers. The encoder's `table_hit` queries the slot it writes;
-the decoder's `table_replay` and `table_select_local/carry` (the v1 and v2
-decoders) query another slot (an INDEX reads b1 & 63 and writes
-hash(px)), so their sort holds a query event and a write event per
-position. Their `block` argument is the JAX package's brute-force width
-and has no effect here.
+with two gathers.
+
+The encoder's `table_hit` queries the slot it writes. Its two phases,
+`table_hit_local` and `table_hit_carry`, sort by (block, slot) for a
+caller that runs them apart; their intermediates are per-block facts,
+so their `block` takes effect, and `table_hit` is the two at one block
+spanning the buffer. The decoder's `table_replay` and
+`table_select_local/carry` (the v1 and v2 decoders) query another slot
+(an INDEX reads b1 & 63 and writes hash(px)), so their sort holds a
+query event and a write event per position; their `block` argument is
+the JAX package's brute-force width and has no effect here.
 """
 from __future__ import annotations
 
@@ -42,13 +47,94 @@ def hash64(px4: torch.Tensor) -> torch.Tensor:
             + x[..., 3] * m[3]) & (_SLOTS - 1)
 
 
+def table_hit_local(keys: torch.Tensor, vals: torch.Tensor,
+                    write: torch.Tensor, block: int = _BLOCK):
+    """Phase A of `table_hit`: the facts local to each `block`-position
+    block. keys: (N,) slot per position; vals: (N,) int64 u32 packed
+    pixel; write: (N,) bool.
+
+    Returns (hit_in (N,) bool: a same-slot writer precedes i in its block
+    and the last one wrote vals[i]; has_local (N,) bool: such a writer
+    exists; s_written (nb, 64) bool: the block writes the slot; s_val
+    (nb, 64) int64 u32: the value of the block's last writer of the slot,
+    0 where none) -- the JAX outputs, s_val as u32 values where JAX has
+    their int32 bit patterns. One stable sort by (block, slot) answers
+    what the JAX function answers with (nb, b, b) brute-force masks."""
+    n = keys.shape[0]
+    nb = -(-n // block)
+    io = torch.arange(n, device=keys.device)
+    groups = (io // block) * _SLOTS + keys.to(torch.int64)
+    # one stable sort by group; every position's last earlier writer in
+    # its group (sorted index, else -1), and every group's last writer
+    order = torch.sort(groups, stable=True).indices
+    counts = torch.bincount(groups, minlength=nb * _SLOTS)
+    gstart = exclusive_cumsum(counts)
+    last_w = last_true_index(write[order])
+    prev = torch.cat([last_w.new_full((1,), -1), last_w[:-1]])
+    prev = torch.where(prev >= gstart[groups[order]], prev, -1)
+    end = last_w[(gstart + counts - 1).clamp(min=0)]
+    end = torch.where((counts > 0) & (end >= gstart), end, -1)
+    sv = vals.to(torch.int64)[order]
+    has = prev >= 0
+    hit = has & (sv[prev.clamp(min=0)] == sv)
+    hit_in = torch.empty_like(hit)
+    hit_in[order] = hit
+    has_local = torch.empty_like(has)
+    has_local[order] = has
+    s_written = (end >= 0).reshape(nb, _SLOTS)
+    s_val = torch.where(end >= 0, sv[end.clamp(min=0)], 0).reshape(nb, _SLOTS)
+    return hit_in, has_local, s_written, s_val
+
+
+def table_hit_carry(
+    local,
+    keys: torch.Tensor,
+    vals: torch.Tensor,
+    block: int = _BLOCK,
+    incoming: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Phase B of `table_hit`: the table entering each block (the last
+    earlier block that wrote each slot, else the incoming entry), a hit
+    test against it for the positions with no writer earlier in their
+    block, and the final table. `local` is `table_hit_local`'s output at
+    the same `block`; incoming: optional (table (64,) u32, written (64,)
+    bool), unwritten entries reading 0.
+
+    Returns (hit (N,) bool, (final_table (64,) int64 u32, final_written
+    (64,) bool)). A never-written slot reads 0 == pack_rgba(0, 0, 0, 0),
+    the zero table entry, so `entry == vals` is the hit test either way."""
+    hit_in, has_local, s_written, s_val = local
+    dev = keys.device
+    nb = s_written.shape[0]
+    if incoming is None:
+        inc_t = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
+        inc_w = torch.zeros(_SLOTS, dtype=torch.bool, device=dev)
+    else:
+        inc_t, inc_w = incoming[0].to(torch.int64), incoming[1]
+    inc_v = torch.where(inc_w, inc_t, 0)
+    blk = torch.arange(nb, device=dev)[:, None]
+    last_blk = torch.cummax(torch.where(s_written, blk, -1), dim=0).values
+    before = torch.cat([last_blk.new_full((1, _SLOTS), -1), last_blk[:-1]])
+    entry = torch.where(before >= 0, s_val.gather(0, before.clamp(min=0)),
+                        inc_v[None, :])                       # (nb, 64)
+    io = torch.arange(keys.shape[0], device=dev)
+    carry_val = entry[io // block, keys.to(torch.int64)]
+    hit = torch.where(has_local, hit_in, carry_val == vals.to(torch.int64))
+    fin = last_blk[-1]
+    final_table = torch.where(
+        fin >= 0, s_val.gather(0, fin.clamp(min=0)[None, :])[0], inc_v)
+    return hit, (final_table, (fin >= 0) | inc_w)
+
+
 def table_hit(
     keys: torch.Tensor,
     vals: torch.Tensor,
     write: torch.Tensor,
     incoming: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """INDEX-hit detection under last-writer-wins replay.
+    """INDEX-hit detection under last-writer-wins replay: both phases
+    with one block spanning the buffer, so one sort by slot does the
+    work and the carry only reads the incoming table.
 
     keys: (N,) slot per position; vals: (N,) int64 u32 packed pixel;
     write: (N,) bool; incoming: optional (table (64,) int64 u32, written
@@ -56,32 +142,11 @@ def table_hit(
 
     Returns (hit (N,) bool, (final_table (64,) int64 u32, final_written
     (64,) bool)), with hit[i] == (table value at keys[i] just before i ==
-    vals[i]) -- the same outputs as the JAX `table_hit`."""
-    dev = keys.device
-    if incoming is None:
-        inc_t = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
-        inc_w = torch.zeros(_SLOTS, dtype=torch.bool, device=dev)
-    else:
-        inc_t, inc_w = incoming
-        inc_t = inc_t.to(torch.int64)
-    inc_v = torch.where(inc_w, inc_t, 0)
-
-    order = torch.sort(keys, stable=True).indices
-    sk, sv, sw = keys[order], vals[order], write[order]
-    counts = torch.bincount(keys, minlength=_SLOTS)
-    gstart = exclusive_cumsum(counts)                  # (64,) group starts
-    # last writer at or before each sorted index (-1: none so far)
-    last_w = last_true_index(sw)
-    prev = torch.cat([last_w.new_full((1,), -1), last_w[:-1]])
-    has = prev >= gstart[sk]                           # writer in own slot
-    before = torch.where(has, sv[prev.clamp(min=0)], inc_v[sk])
-    hit = torch.empty_like(write)
-    hit[order] = before == sv
-
-    end_w = last_w[(gstart + counts - 1).clamp(min=0)]
-    wrote = (counts > 0) & (end_w >= gstart)
-    final_table = torch.where(wrote, sv[end_w.clamp(min=0)], inc_v)
-    return hit, (final_table, wrote | inc_w)
+    vals[i]) -- the outputs of the JAX `table_hit`, which do not depend
+    on its block width."""
+    block = max(keys.shape[0], 1)
+    return table_hit_carry(table_hit_local(keys, vals, write, block),
+                           keys, vals, block, incoming)
 
 
 def table_select_local(keys: torch.Tensor, vals: torch.Tensor,

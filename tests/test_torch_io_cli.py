@@ -114,13 +114,17 @@ def test_table_block_has_no_effect():
 
 
 def test_mesh_is_refused(tmp_path):
+    """Outside a process group of mesh[0]*mesh[1] ranks a mesh config is
+    refused; inside one it runs the sequence-parallel codec
+    (tests/test_torch_tiled_encode.py)."""
     img = _img()
     cfg = EngineConfig(mesh=(1, 2))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="process group"):
         tio.write(tmp_path / "m.qoi", img, tio.image_desc(img), engine=cfg,
                   device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="process group"):
         qoi_tpu_torch.encode(img, engine=cfg, device=CPU)
+    assert not (tmp_path / "m.qoi").exists()
 
 
 def test_png_roundtrip(tmp_path):
@@ -258,6 +262,29 @@ def test_bench_refuses(tmp_path):
                  ["1", str(tmp_path), "--device", CPU]):
         with pytest.raises(SystemExit):
             bench.main(argv)
+
+
+def test_bench_scaling_in_a_two_rank_group():
+    """bench --scaling inside a gloo group of two ranks, on a 160x96 photo
+    (`bench.main(scaling_shape=)`): rank 0 prints the sweep over 1 and 2 shards
+    with the JAX sweep's JSON keys, says that the ranks share one device,
+    and rank 1 prints nothing."""
+    import torch_parallel_tasks as tasks
+    from qoi_tpu_torch.parallel.launch import RankPool
+
+    with RankPool(2, device="cpu", timeout_s=120) as pool:
+        (rc0, out0), (rc1, out1) = pool.run(
+            tasks.bench_scaling, ["1", "--scaling", "--json", "--device",
+                                  CPU], (160, 96))
+    assert rc0 == rc1 == 0 and out1 == []
+    summary = json.loads(out0[-1])
+    assert set(summary) == {"encode_mpps", "encode_eff", "decode_mpps",
+                            "decode_eff"}
+    assert set(summary["encode_mpps"]) == {"1", "2"}
+    assert summary["encode_eff"]["1"] == summary["decode_eff"]["1"] == 1.0
+    assert all(v > 0 for v in summary["decode_mpps"].values())
+    assert any("share one device" in line for line in out0)
+    assert "160x96" in out0[0]
 
 
 def test_bench_verification_gate(monkeypatch):

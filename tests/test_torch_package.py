@@ -76,6 +76,8 @@ from qoi_tpu_torch.ops import scans, table, compact, fsm, link
 from qoi_tpu_torch.kernels import (slide, expand, block_maps, pack,
                                    encode_stage, scan_codec, numeric_scan,
                                    _build)
+from qoi_tpu_torch.parallel import (sharding, tiled, tiled_decode, dryrun,
+                                    launch)
 from qoi_tpu_torch.utils import testimages
 img = testimages.mixed(23, 9, 4)
 s = qoi_tpu_torch.encode(img, device="cpu")
@@ -135,6 +137,22 @@ print("ok")
     assert res.stdout.strip().splitlines()[-1] == "ok"
 
 
+@pytest.fixture()
+def one_rank_group():
+    """A gloo process group of this process alone, torn down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
 def _call_surface(name, tmp_path):
     """Call one user surface with its default device."""
     from qoi_tpu_torch import bench, cli, corpus, io
@@ -163,6 +181,20 @@ def _call_surface(name, tmp_path):
         "profiling.device_sync_time": lambda: profiling.device_sync_time(
             lambda: None),
     }
+    if name.startswith(("parallel.", "bench --scaling")):
+        from qoi_tpu_torch.parallel import (dryrun, sharding, tiled,
+                                            tiled_decode)
+
+        cpu_mesh = sharding.make_mesh(1, 1, device="cpu")
+        calls = {
+            "parallel.make_mesh": lambda: sharding.make_mesh(1, 1),
+            "parallel.encode_tiled": lambda: tiled.encode_tiled(
+                img, desc, cpu_mesh),
+            "parallel.decode_tiled": lambda: tiled_decode.decode_tiled(
+                stream, cpu_mesh),
+            "parallel.dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
+            "bench --scaling": lambda: bench.main(["1", "--scaling"]),
+        }
     return calls[name]()
 
 
@@ -177,6 +209,73 @@ def test_surfaces_default_to_cuda_and_raise_without_a_card(name, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _call_surface(name, tmp_path)
+
+
+@pytest.mark.parametrize("name", [
+    "parallel.make_mesh", "parallel.encode_tiled", "parallel.decode_tiled",
+    "parallel.dryrun_multichip", "bench --scaling"])
+def test_parallel_defaults_to_cuda_and_raises_without_a_card(
+        name, tmp_path, one_rank_group):
+    """The sequence-parallel entry points, inside a process group, default
+    to "cuda" and raise on a machine without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _call_surface(name, tmp_path)
+
+
+def test_mesh_config_needs_a_process_group():
+    """EngineConfig(mesh=...) is accepted and routes to the
+    sequence-parallel codec, which raises without a process group (a
+    mesh never falls back to one rank); make_mesh refuses a group of the
+    wrong size."""
+    from qoi_tpu_torch.config import EngineConfig
+    from qoi_tpu_torch.parallel import sharding
+
+    img = testimages.mixed(9, 4, 4)
+    with pytest.raises(RuntimeError, match="process group"):
+        qoi_tpu_torch.encode(img, device="cpu",
+                             config=EngineConfig(mesh=(1, 2)))
+    with pytest.raises(RuntimeError, match="process group"):
+        sharding.make_mesh(1, 1, device="cpu")
+
+
+def test_make_mesh_is_made_once_per_group(one_rank_group, monkeypatch):
+    """make_mesh returns one mesh for each shape and device of a process
+    group and creates no process group after the first call; a default
+    group brought up anew gets a mesh of its own."""
+    import socket
+
+    import torch.distributed as dist
+
+    from qoi_tpu_torch.parallel import sharding
+
+    made = []
+    real = dist.new_group
+    monkeypatch.setattr(dist, "new_group",
+                        lambda *a, **k: made.append(1) or real(*a, **k))
+    mesh = sharding.make_mesh(1, 1, device="cpu")
+    assert len(made) == 3
+    assert sharding.make_mesh(1, 1, device="cpu") is mesh
+    assert sharding.mesh_over([0], 1, 1, "cpu") is mesh and len(made) == 3
+    dist.destroy_process_group()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    again = sharding.make_mesh(1, 1, device="cpu")
+    assert again is not mesh and len(made) == 6
+
+
+def test_make_mesh_checks_the_world_size(one_rank_group):
+    from qoi_tpu_torch.parallel import sharding
+
+    with pytest.raises(ValueError, match="2 ranks"):
+        sharding.make_mesh(1, 2, device="cpu")
+    mesh = sharding.make_mesh(1, 1, device="cpu")
+    assert mesh.shape == {"data": 1, "seq": 1}
+    assert (mesh.seq.index, mesh.seq.size, mesh.device.type) == (0, 1, "cpu")
 
 
 @pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps",

@@ -243,18 +243,19 @@ def test_facade_still_refuses_images_past_the_format_cap():
                                    dict(verify=True), dict(table_block=32),
                                    dict(mesh=(1, 1))])
 def test_facade_refuses_unported_config_fields(field):
-    """The facade refuses the one EngineConfig field whose path is not
-    ported (mesh) rather than ignore it, and takes the others: the scan
-    and oracle engines, verify (checked by io.write/read) and table_block
+    """The facade ignores no EngineConfig field: mesh routes to the
+    sequence-parallel codec, which refuses to run outside a process group
+    (in one it runs, tests/test_torch_tiled_encode.py), and the scan and
+    oracle engines, verify (checked by io.write/read) and table_block
     (no effect on the sort-based table) give the oracle's bytes and the
     source pixels."""
     img = testimages.mixed(16, 8, 4)
     cfg = EngineConfig(**field)
     stream = oracle.encode(img, _desc(img))
     if "mesh" in field:
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(RuntimeError, match="process group"):
             qoi_tpu_torch.encode(img, device="cpu", config=cfg)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(RuntimeError, match="process group"):
             qoi_tpu_torch.decode(stream, device="cpu", config=cfg)
         return
     assert qoi_tpu_torch.encode(img, device="cpu", config=cfg) == stream
