@@ -15,7 +15,7 @@ the ptxas report of its build (registers, shared memory, spills);
 slide_val also at a sequence-parallel tile's shape (405, 40960).
 decode_scan also runs on a whole 4 MiB streamed tile from its real entry
 state, where its pixels must equal the source frame's and the fixpoint's
-and its exit state the one those pixels imply. Then it drives eight paths
+and its exit state the one those pixels imply. Then it drives nine paths
 through the port's public functions, each with the launch counts set to 0
 just before it and read just after:
 
@@ -74,6 +74,23 @@ just before it and read just after:
      parallel.dryrun.dryrun_multichip(4) on the same group, a (2, 2) mesh.
      A rank that fails or gives no answer within the pool's 300 s fails
      the script;
+  9. conformance: the 303 images of qoi_tpu_torch/utils/make_corpus.py
+     (179.9 Mpx: photo, photo_rgba, icons, screens, hash-collision and
+     palette_alpha palettes, ~5 B/px noise, 1xN and Nx1 up to 16384, a
+     16.38 Mpx member just under the streaming switch and a 17.28 Mpx one
+     just over it), made with their oracle streams in a process of their
+     own while paths 1-8 run: every image through the facade, its encode the
+     oracle's bytes and its decode of the oracle's stream the source's
+     pixels; the whole set through models.batch.encode_batch /
+     decode_batch, a class a call, with the same gates; the
+     hard/palette_alpha_* and hard/collide_* members decoded again with
+     the native decoder hidden; then utils/fuzzcases.py's differential
+     fuzz families (a)-(g) through the six decode paths and (g) through
+     the five encode paths, and (f'), mutated and truncated 4K mixed and
+     photo streams through the facade, the ladder without the native
+     decoder and _decode_device(dense=True), and mutated 256x256 streams
+     through every decode path: every answer the oracle's (a rejection
+     where it rejects, its pixels where it accepts);
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
@@ -88,9 +105,11 @@ the user surfaces' rates beside the facade loop's on the same frames,
 the CLI subprocess's wall seconds and the corpus summary; for path 8 the
 ms of each direction on every rank, each rank's phase and collective
 seconds and collectives (gloo on the CUDA tensors; none is staged through
-the host), fixpoint rounds and peak device memory. The ranks' kernel launches count with the
-parent's. One
-JSON line lists the kernels. The last line is the JSON result object.
+the host), fixpoint rounds and peak device memory. The ranks' kernel
+launches count with the parent's. Path 9 reports the facade's and the
+batch API's encode and decode Mpx/s for each class of the corpus, the
+fuzz cases of each family with the seconds of each path, and its wall
+seconds. One JSON line lists the kernels. The last line is the JSON result object.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
 """
@@ -99,13 +118,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing
 import pathlib
 import subprocess
 import sys
 import tempfile
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -237,6 +257,24 @@ def seq_parallel_rank(tmp: str, width: int, height: int,
                           if on_card else 0.0))
 
 
+def corpus_inputs(tmp: str) -> list:
+    """Path 9's inputs, made in a process of its own: each of the 303
+    images of qoi_tpu_torch/utils/make_corpus.py to `tmp` as <k>.npy and
+    its oracle stream as <k>.qoi. Returns the images' names, k in order."""
+    from qoi_tpu_torch import oracle
+    from qoi_tpu_torch.io import image_desc
+    from qoi_tpu_torch.utils import make_corpus
+
+    names = []
+    for k, (name, make) in enumerate(make_corpus.full_specs()):
+        img = make()
+        np.save(pathlib.Path(tmp, f"{k}.npy"), img)
+        pathlib.Path(tmp, f"{k}.qoi").write_bytes(
+            oracle.encode(img, image_desc(img)))
+        names.append(name)
+    return names
+
+
 def main() -> int:
     import torch
 
@@ -259,7 +297,9 @@ def main() -> int:
     from qoi_tpu_torch.kernels import slide as kslide
     from qoi_tpu_torch.models import (decode_pipeline, decode_v2, decode_v3,
                                       pipeline, scan_codec, streamed)
+    from qoi_tpu_torch.io import image_desc
     from qoi_tpu_torch.ops import compact
+    from qoi_tpu_torch.utils import fuzzcases as fz
     from qoi_tpu_torch.utils import testimages
 
     t_start = time.perf_counter()
@@ -324,6 +364,15 @@ def main() -> int:
     log(f"inputs: {2 * NFRAMES + 1} 4K frames + oracle streams in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_done("4K inputs")
+
+    # path 9's corpus is made in a process of its own while the kernels
+    # are timed and paths 1-8 run, and handed over in files: a thread of
+    # this process, or one receiving ~900 MB through a pipe, would hold
+    # the interpreter lock between their launches
+    corpus_ctx = tempfile.TemporaryDirectory()
+    corpus_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    corpus_names = corpus_pool.submit(corpus_inputs, corpus_ctx.name)
 
     def px4_of(frame, desc):
         px4 = np.zeros((npc, 4), np.uint8)
@@ -1363,7 +1412,158 @@ def main() -> int:
     finally:
         seq_pool.close()
         seq_ctx.cleanup()
-    log(f"launches over the eight counted runs: {counts_total}")
+
+    def conformance_path():
+        from qoi_tpu_torch.models import batch
+
+        t_path = time.perf_counter()
+        names = corpus_names.result()
+        corpus_pool.shutdown()
+        cdir = pathlib.Path(corpus_ctx.name)
+        items = [(name, np.load(cdir / f"{k}.npy"),
+                  (cdir / f"{k}.qoi").read_bytes())
+                 for k, name in enumerate(names)]
+        corpus_ctx.cleanup()
+        check(len(items) == 303, f"the corpus has {len(items)} images")
+        log(f"conformance corpus: {len(items)} images, "
+            f"{sum(im.shape[0] * im.shape[1] for _, im, _ in items) / 1e6:.3f}"
+            f" Mpx, made in a process of their own during paths 1-8 (loaded "
+            f"{time.perf_counter() - t_path:.1f} s after path 9 began)")
+        classes = {}
+        for name, img, _ in items:
+            classes.setdefault(name.split("/")[0], []).append(img)
+
+        def class_lines(label, rows):
+            tot = [0, 0, 0.0, 0.0]
+            for folder, (k, px, enc_s, dec_s) in rows.items():
+                log(f"conformance {label} {folder}: {k} images, "
+                    f"{px / 1e6:.3f} Mpx; encode {px / 1e6 / enc_s:.3f} "
+                    f"Mpx/s ({enc_s:.3f} s), decode {px / 1e6 / dec_s:.3f} "
+                    f"Mpx/s ({dec_s:.3f} s)")
+                tot = [a + b for a, b in zip(tot, (k, px, enc_s, dec_s))]
+            log(f"conformance {label} all: {tot[0]} images, "
+                f"{tot[1] / 1e6:.3f} Mpx; encode {tot[1] / 1e6 / tot[2]:.3f} "
+                f"Mpx/s ({tot[2]:.3f} s), decode "
+                f"{tot[1] / 1e6 / tot[3]:.3f} Mpx/s ({tot[3]:.3f} s); every "
+                "encode the oracle's bytes, every decode the source's pixels")
+
+        # the facade, image by image; the 17.28 Mpx member streams
+        rows = {}
+        for name, img, stream in items:
+            h, w, _ = img.shape
+            t0 = time.perf_counter()
+            got = qoi_tpu_torch.encode(img, device=dev)
+            t1 = time.perf_counter()
+            check(got == stream, f"conformance facade encode {name}: not "
+                  "the oracle's bytes")
+            out, desc = qoi_tpu_torch.decode(stream, device=dev)
+            t2 = time.perf_counter()
+            check(np.array_equal(out, img) and desc == image_desc(img),
+                  f"conformance facade decode {name}: not the source")
+            r = rows.setdefault(name.split("/")[0], [0, 0, 0.0, 0.0])
+            for i, v in enumerate((1, w * h, t1 - t0, t2 - t1)):
+                r[i] += v
+        n_big = sum(im.shape[0] * im.shape[1] > qoi_tpu_torch
+                    .STREAM_THRESHOLD_PX for _, im, _ in items)
+        check(n_big == 1, f"{n_big} members above the streaming switch")
+        class_lines("facade", rows)
+
+        # the bucketed batch API, a class a call
+        rows = {}
+        for folder, imgs in classes.items():
+            want = [s for n, _, s in items if n.startswith(folder + "/")]
+            got, enc_ms = sync_ms(lambda: batch.encode_batch(imgs,
+                                                             device=dev))
+            bad = [i for i, (g, x) in enumerate(zip(got, want)) if g != x]
+            check(not bad, f"conformance encode_batch {folder}: images "
+                  f"{bad} not the oracle's bytes")
+            res, dec_ms = sync_ms(lambda: batch.decode_batch(want,
+                                                             device=dev))
+            bad = [i for i, ((px, _, err), im) in enumerate(zip(res, imgs))
+                   if err is not None or not np.array_equal(px, im)]
+            check(not bad, f"conformance decode_batch {folder}: images "
+                  f"{bad} not the source")
+            rows[folder] = [len(imgs), sum(im.shape[0] * im.shape[1]
+                                           for im in imgs),
+                            enc_ms / 1e3, dec_ms / 1e3]
+        class_lines("batch", rows)
+
+        # the ladder's hard members with the native decoder hidden
+        hard = [(n, im, s) for n, im, s in items
+                if n.startswith(("hard/palette_alpha_", "hard/collide_"))]
+        k0 = dict(_build.launches)
+        t0 = time.perf_counter()
+        with fz.native_hidden():
+            for name, img, stream in hard:
+                out, _ = qoi_tpu_torch.decode(stream, device=dev)
+                check(np.array_equal(out, img),
+                      f"conformance {name} without the native decoder")
+        log(f"conformance without the native decoder (P2): {len(hard)} "
+            f"hard/palette_alpha_* and hard/collide_* members pixel-"
+            f"identical to the sources; {time.perf_counter() - t0:.3f} s; "
+            f"launches { {k: v - k0[k] for k, v in _build.launches.items()} }")
+        del items, classes, hard
+
+        # the differential fuzz on the card, every family through every path
+        fuzz_counts = {}
+        for fam, cases in fz.families(full=True).items():
+            wants = [fz.oracle_answer(c) for c in cases]
+            secs = {}
+            for p in fz.DECODE_PATHS:
+                t0 = time.perf_counter()
+                bad = fz.check_decode(p, cases, dev, wants)
+                secs[p.split()[0]] = round(time.perf_counter() - t0, 3)
+                check(not bad, "fuzz: " + "; ".join(bad[:5]))
+            acc = sum(w is not None for w in wants)
+            fuzz_counts[fam] = len(cases)
+            log(f"fuzz family {fam}: {len(cases)} cases ({acc} accepted by "
+                f"the oracle, {len(cases) - acc} rejected) x "
+                f"{len(fz.DECODE_PATHS)} decode paths: 0 mismatches; s per "
+                f"path {secs}")
+        imgs = fz.encode_images(30)
+        secs = {}
+        for p in fz.ENCODE_PATHS:
+            t0 = time.perf_counter()
+            bad = fz.check_encode(p, imgs, dev)
+            secs[p] = round(time.perf_counter() - t0, 3)
+            check(not bad, "fuzz: " + "; ".join(bad[:5]))
+        log(f"fuzz family g, encode: {len(imgs)} images x "
+            f"{len(fz.ENCODE_PATHS)} encode paths: the oracle's bytes; s per "
+            f"path {secs}")
+        card = fz.card_cases([mixed_streams[0], photo_streams[0]])
+        wants = [fz.oracle_answer(c) for c in card]
+        secs = {}
+        for p in fz.DECODE_PATHS[:2]:
+            t0 = time.perf_counter()
+            bad = fz.check_decode(p, card, dev, wants)
+            secs[p.split()[0]] = round(time.perf_counter() - t0, 3)
+            check(not bad, "fuzz: " + "; ".join(bad[:5]))
+        t0 = time.perf_counter()
+        bad, n_conv = fz.check_dense(card, dev, wants)
+        secs["dense"] = round(time.perf_counter() - t0, 3)
+        check(not bad, "fuzz: " + "; ".join(bad[:5]))
+        log(f"fuzz family f' (4K mixed and photo, 8 mutated + 8 truncated "
+            f"each): {len(card)} cases through P1, P2 and "
+            f"_decode_device(dense=True): 0 mismatches, {n_conv} of "
+            f"{sum(w is not None for w in wants)} converged on the dense "
+            f"decode; s per path {secs}")
+        small = fz.card_cases([oracle.encode(testimages.mixed(
+            256, 256, 4, seed=3), fmt.StreamDesc(256, 256, 4))], n_trunc=0,
+            seed=8)
+        wants = [fz.oracle_answer(c) for c in small]
+        for p in fz.DECODE_PATHS:
+            bad = fz.check_decode(p, small, dev, wants)
+            check(not bad, "fuzz: " + "; ".join(bad[:5]))
+        fuzz_counts["f'"] = len(card) + len(small)
+        log(f"fuzz family f' (256x256 mixed, 8 mutated): through "
+            f"{len(fz.DECODE_PATHS)} decode paths: 0 mismatches; fuzz cases "
+            f"by family {fuzz_counts}")
+        log(f"conformance path: {time.perf_counter() - t_path:.1f} s wall")
+
+    counted("conformance", ("slide_val", "slide_val2", "expand_px",
+                            "block_maps", "place_words", "encode_stage",
+                            "decode_scan", "encode_scan"), conformance_path)
+    log(f"launches over the nine counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]

@@ -17,7 +17,10 @@ one-card machine every rank shares `cuda:0`.
 
 Gloo takes all_gather, all_reduce and reduce_scatter_tensor on CUDA
 tensors (torch 2.11 on an H100), so `Axis` hands the tensor to gloo as it
-is; a backend that refuses one raises. `Mesh.stats` counts the
+is; a backend that refuses one raises. The two final gathers, whose
+result goes to the host, take `Axis.gather_to_host`: a host tensor under
+gloo (faster there), one on the rank's device under NCCL, which takes
+only CUDA tensors (`collective_device`). `Mesh.stats` counts the
 collectives and their seconds, and the seconds of the phases the codec
 marks.
 
@@ -95,6 +98,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def collective_device(group, device: torch.device) -> torch.device:
+    """Where a collective over `group` takes its tensors: `device` (the
+    rank's card) under NCCL, which takes only CUDA tensors; the host under
+    any other backend (gloo), where the final gathers run fastest."""
+    if dist.get_backend(group) == "nccl":
+        return device
+    return torch.device("cpu")
+
+
 class Axis:
     """One axis of a mesh as this rank sees it: its process group, its
     size, this rank's index on it, and the collectives over it."""
@@ -115,6 +127,12 @@ class Axis:
             return torch.stack(out)
 
         return self._collective("all_gather", t, run)
+
+    def gather_to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """all_gather of t on the device the backend takes
+        (`collective_device`), the result on the host."""
+        return self.all_gather(
+            t.to(collective_device(self.group, t.device))).cpu()
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's t."""

@@ -177,8 +177,8 @@ def encode_tiled(pixels: np.ndarray, desc: fmt.StreamDesc,
     tile, n = shard_pixels(pixels, desc, ax, sharding.rank_device(device))
     out = _tile_step(tile, n, ax)
     # every rank's bytes, each tile's buffer cut to the longest total,
-    # gathered on the host, where the stream goes
+    # gathered to the host, where the stream goes
     width = max(out.totals)
-    bufs = ax.all_gather(out.buf[:width].cpu()).numpy()
+    bufs = ax.gather_to_host(out.buf[:width]).numpy()
     body = b"".join(bufs[i, :t].tobytes() for i, t in enumerate(out.totals))
     return fmt.pack_header(desc) + body + fmt.TRAILER

@@ -347,7 +347,7 @@ def decode_tiled(data: bytes, mesh: "sharding.Mesh", channels: int = 0,
     px32, conv = _decode_expand_device(local, chunks_len, ax, n_px_cap)
     if not conv:
         return dp.decode(data, channels, dev)
-    flat = ax.all_gather(to_i32(px32).cpu()).numpy()    # on the host
+    flat = ax.gather_to_host(to_i32(px32)).numpy()
     img = flat.reshape(-1).view(np.uint8).reshape(-1, 4)[:desc.num_pixels]
     return (np.ascontiguousarray(img[:, :out_ch]).reshape(
         desc.height, desc.width, out_ch), desc)

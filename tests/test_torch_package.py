@@ -78,7 +78,7 @@ from qoi_tpu_torch.kernels import (slide, expand, block_maps, pack,
                                    _build)
 from qoi_tpu_torch.parallel import (sharding, tiled, tiled_decode, dryrun,
                                     launch)
-from qoi_tpu_torch.utils import testimages
+from qoi_tpu_torch.utils import testimages, make_corpus, fuzzcases
 img = testimages.mixed(23, 9, 4)
 s = qoi_tpu_torch.encode(img, device="cpu")
 px, desc = qoi_tpu_torch.decode(s, device="cpu")
