@@ -15,7 +15,7 @@ the ptxas report of its build (registers, shared memory, spills);
 slide_val also at a sequence-parallel tile's shape (405, 40960).
 decode_scan also runs on a whole 4 MiB streamed tile from its real entry
 state, where its pixels must equal the source frame's and the fixpoint's
-and its exit state the one those pixels imply. Then it drives nine paths
+and its exit state the one those pixels imply. Then it drives ten paths
 through the port's public functions, each with the launch counts set to 0
 just before it and read just after:
 
@@ -91,6 +91,14 @@ just before it and read just after:
      decoder and _decode_device(dense=True), and mutated 256x256 streams
      through every decode path: every answer the oracle's (a rejection
      where it rejects, its pixels where it accepts);
+ 10. measurement: the headline benchmark (qoi_tpu_torch.headline) in
+     process at 4K with 2 frames, 1 dispatch and 1 rep, gates and timing,
+     whose JSON line must hold every key; and the A/B harness
+     (qoi_tpu_torch.abperf) on 2 streams, `decode --only "v3 scanapply"`
+     (decode_v3._decode_device(apply="scan"): numeric_scan must launch
+     there) and `decode --only "abl initial_w"`, and on 2 frames
+     `encode --only wordsum20480`, each variant verified before it is
+     timed;
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
@@ -109,7 +117,9 @@ the host), fixpoint rounds and peak device memory. The ranks' kernel
 launches count with the parent's. Path 9 reports the facade's and the
 batch API's encode and decode Mpx/s for each class of the corpus, the
 fuzz cases of each family with the seconds of each path, and its wall
-seconds. One JSON line lists the kernels. The last line is the JSON result object.
+seconds; path 10 the headline's line and diagnostics and the harness's
+variant lines. One JSON line lists the kernels. The last line is the
+JSON result object.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
 """
@@ -1563,7 +1573,62 @@ def main() -> int:
     counted("conformance", ("slide_val", "slide_val2", "expand_px",
                             "block_maps", "place_words", "encode_stage",
                             "decode_scan", "encode_scan"), conformance_path)
-    log(f"launches over the nine counted runs: {counts_total}")
+
+    def measurement_path():
+        from qoi_tpu_torch import abperf, headline
+
+        t_path = time.perf_counter()
+
+        def run(main, argv):
+            """main(argv) with its stdout and stderr captured: (its
+            return code, its stdout lines); stderr is logged."""
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = main(argv)
+            for line in err.getvalue().splitlines():
+                log(f"  {line}")
+            return rc, out.getvalue().strip().splitlines()
+
+        rc, lines = run(headline.main,
+                        ["--frames", "2", "--dispatch", "1", "--reps", "1"])
+        check(rc == 0 and len(lines) == 1,
+              f"headline: return code {rc}, stdout {lines}")
+        res = json.loads(lines[0])
+        keys = ("metric", "value", "unit", "vs_baseline", "decode_mpxs",
+                "decode_vs_baseline", "decode_mixed_mpxs",
+                "decode_mixed_vs_baseline", "decode_adversarial_mpxs",
+                *headline.EXTRA_KEYS)
+        missing = [k for k in keys if k not in res]
+        check(not missing and "verify_failed" not in res,
+              f"headline line lacks {missing} or failed: {lines[0]}")
+        log(f"headline at 4K, 2 frames, 1 dispatch, 1 rep: {lines[0]}")
+        for argv, names in (
+                (["decode", "--streams", "2", "--reps", "2", "--only",
+                  "v3 scanapply"], ["v3 scanapply"]),
+                (["decode", "--streams", "2", "--reps", "2", "--only",
+                  "abl initial_w"], ["abl initial_w"]),
+                (["encode", "--frames", "2", "--reps", "2", "--only",
+                  "wordsum20480"], ["wordsum20480"])):
+            k0 = _build.launches["numeric_scan"]
+            rc, lines = run(abperf.main, argv)
+            check(rc == 0 and [x.split(":")[0] for x in lines] == names
+                  and all(" ms, median " in x for x in lines),
+                  f"abperf {argv}: return code {rc}, stdout {lines}")
+            for line in lines:
+                log(f"abperf {argv[0]}: {line}")
+            if names == ["v3 scanapply"]:
+                k1 = _build.launches["numeric_scan"]
+                check(k1 - k0 >= 2, "abperf v3 scanapply: numeric_scan "
+                      f"launched {k1 - k0} times by _decode_device"
+                      "(apply='scan') on 2 streams")
+                log(f"numeric_scan launches through _decode_device("
+                    f"apply=\"scan\"): {k1 - k0}")
+        log(f"measurement path: {time.perf_counter() - t_path:.1f} s wall")
+
+    counted("measurement", ("numeric_scan", "slide_val", "block_maps",
+                            "expand_px"), measurement_path)
+    log(f"launches over the ten counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]

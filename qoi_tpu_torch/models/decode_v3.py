@@ -26,10 +26,12 @@ u32 values are int64 in [0, 2**32) (see _bits); kernel planes are int32
 bit patterns. The fixpoint loop is a Python loop that reads the mismatch
 count to the host once per round. The dense expand (`dense=True`) first
 packs the chunk starts' records to the front (`_compact_chunks`, whose
-two-plane slide is kernels/slide.slide_val2). `_resolve_p(apply="scan")`
-re-scans pass 3 numerically (kernels/numeric_scan.py), the differential
-anchor of `_apply_symbolic`. `decode_group` loops over its streams where
-the JAX package vmaps them.
+two-plane slide is kernels/slide.slide_val2). `apply="scan"` (of
+`_decode_core`, `_decode_device` and `_resolve_p`) re-scans pass 3
+numerically (kernels/numeric_scan.py), the differential anchor of
+`_apply_symbolic`; it leaves the surgical round off, as the JAX package
+does. `decode_group` loops over its streams where the JAX package vmaps
+them.
 """
 from __future__ import annotations
 
@@ -273,6 +275,12 @@ def _pos_major(x: torch.Tensor, m: int, b: int) -> torch.Tensor:
     return x.reshape(m // b, b).T.contiguous()
 
 
+def _check_apply(apply: str) -> None:
+    """Raise ValueError unless `apply` names a pass 3."""
+    if apply not in ("vector", "scan"):
+        raise ValueError(f"apply must be 'vector' or 'scan', got {apply!r}")
+
+
 def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None,
                apply: str = "vector"):
     """One full symbolic resolve given written slots w, from the
@@ -285,14 +293,13 @@ def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None,
     "scan" re-scans every block lane numerically from its entry state
     (kernels/numeric_scan.py: the CUDA kernel on the card), the
     differential anchor of the vector form, and extra is None."""
+    _check_apply(apply)
     meta_p = base_p | (_pos_major(w, m, b) << 3).to(torch.int32)
     root, val, proot, pval = block_maps(meta_p, d32_p, lit32_p)
     if apply == "scan":
         entry = _compose_entry_states(root, val, entry65)
         px, exit65 = numeric_scan(meta_p, d32_p, lit32_p, to_i32(entry))
         return u32(px).T.reshape(m), u32(exit65), None
-    if apply != "vector":
-        raise ValueError(f"apply must be 'vector' or 'scan', got {apply!r}")
     entry, exit65 = _compose_entry_states(root, val, entry65,
                                           return_exit=True)
     px = _apply_symbolic(proot, pval, entry).T.reshape(m)
@@ -399,14 +406,17 @@ def _surgical_round(flat, px1, w0, w0i, extra1, ids, m: int, b: int,
 
 
 def _decode_core(data: torch.Tensor, chunks_len, max_rounds: int = _MAX_ROUNDS,
-                 entry65=None, surgical: bool = True):
+                 entry65=None, apply: str = "vector", surgical: bool = True):
     """Full chunk-level decode to per-byte px values + bookkeeping.
     data: (M,) uint8 with M a bucket size. `entry65` ((65,) int64 u32:
     px + 64 slots, default the seed) is the incoming state of a chained
     tile. Returns (px32 (M,) int64 u32, starts, npix, pix_off, converged
     (bool), rounds (int), exit65 ((65,) int64 u32, valid only when
-    converged)). `surgical` allows the narrow second round; it engages
-    only when max_rounds > 1 and the stream has nbk >= 256 blocks."""
+    converged)). `apply` picks pass 3 (see `_resolve_p`). `surgical`
+    allows the narrow second round; it engages only with apply="vector"
+    (whose pass-1 px roots it reuses), max_rounds > 1 and nbk >= 256
+    blocks."""
+    _check_apply(apply)
     m = data.shape[0]
     b = _scan_block_len(m)
     nbk = m // b
@@ -425,7 +435,7 @@ def _decode_core(data: torch.Tensor, chunks_len, max_rounds: int = _MAX_ROUNDS,
         return torch.where(starts, _hash_packed(px), 0) != w
 
     def round_(w, prev_bad):
-        px, exit65, extra = _resolve_p(*planes, w, m, b, entry65)
+        px, exit65, extra = _resolve_p(*planes, w, m, b, entry65, apply)
         mis = mismatches(px, w)
         bad = int(mis.sum())  # the one host read per round
         # bail (-1) when the mismatch count stops shrinking: only
@@ -438,7 +448,8 @@ def _decode_core(data: torch.Tensor, chunks_len, max_rounds: int = _MAX_ROUNDS,
     # need a second round
     px, exit65, bad, extra, mis = round_(w0, 0x7FFFFFFF)
     rounds = 1
-    if bad > 0 and surgical and max_rounds > 1 and nbk >= 256:
+    if (bad > 0 and apply == "vector" and surgical and max_rounds > 1
+            and nbk >= 256):
         ids = _surgical_windows(mis.reshape(nbk, b).any(dim=1))
         if ids is not None:
             px, w, exit65 = _surgical_round((base_f, d32, lit32), px, w0,
@@ -516,11 +527,13 @@ def _expand_packed(starts, px32, pix_off, n_px_cap: int,
 
 def _decode_device(data: torch.Tensor, chunks_len: int, n_px_cap: int,
                    dense: bool = False, max_rounds: int = _MAX_ROUNDS,
-                   surgical: bool = True):
-    """Device decode of one padded stream body. Returns (px32
-    (n_px_cap,) int32, converged, rounds)."""
+                   apply: str = "vector", surgical: bool = True):
+    """Device decode of one padded stream body. `apply` picks pass 3:
+    "vector" (the default) or "scan", the numeric re-scan (the
+    numeric_scan kernel on the card), which runs without the surgical
+    round. Returns (px32 (n_px_cap,) int32, converged, rounds)."""
     px, starts, _, pix_off, conv, rounds, _ = _decode_core(
-        data, chunks_len, max_rounds, surgical=surgical)
+        data, chunks_len, max_rounds, apply=apply, surgical=surgical)
     return (_expand_packed(starts, px, pix_off, n_px_cap, dense=dense),
             conv, rounds)
 

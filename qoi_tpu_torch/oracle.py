@@ -3,11 +3,15 @@
 The oracle is the framework's ground truth for differential testing
 (SURVEY.md §2.4): encodes must match it byte-for-byte and decodes
 pixel-for-pixel. It is also the single-core CPU fallback path. The shared
-library is built on demand with the cpp/Makefile.
+library is built on demand with the cpp/Makefile, under an exclusive lock
+on `qoi_tpu_torch/build/oracle.lock`: processes that start together (test
+workers) wait for one build and load the library only after `make` has
+returned, never a half-written one.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import pathlib
 import subprocess
 from typing import Optional, Tuple
@@ -18,19 +22,30 @@ from .format import StreamDesc
 
 _CPP_DIR = pathlib.Path(__file__).resolve().parent.parent / "cpp"
 _LIB_PATH = _CPP_DIR / "build" / "libqoi_oracle.so"
+_LOCK_PATH = pathlib.Path(__file__).resolve().parent / "build" / "oracle.lock"
 _lib: Optional[ctypes.CDLL] = None
+
+
+def _build_locked() -> None:
+    """Run `make` for the library unless it exists, holding the lock file
+    for the check and the build, so that one process builds and the
+    others wait for it."""
+    _LOCK_PATH.parent.mkdir(parents=True, exist_ok=True)
+    with open(_LOCK_PATH, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _LIB_PATH.exists():
+            subprocess.run(
+                ["make", "-s", str(_LIB_PATH.relative_to(_CPP_DIR))],
+                cwd=_CPP_DIR,
+                check=True,
+            )
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists():
-        subprocess.run(
-            ["make", "-s", str(_LIB_PATH.relative_to(_CPP_DIR))],
-            cwd=_CPP_DIR,
-            check=True,
-        )
+    _build_locked()
     lib = ctypes.CDLL(str(_LIB_PATH))
     u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.qo_encode.restype = u8p

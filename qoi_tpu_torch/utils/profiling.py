@@ -7,7 +7,7 @@ qoi_tpu/utils/profiling.py).
 - `annotate(name)` names a region for the profiler (record_function) and,
   on a machine with a card, for NVTX;
 - `device_sync_time(fn)` times a device callable, synchronizing the card
-  around every run;
+  around every run (`device_sync_times` keeps every run's seconds);
 - `encode_sol_model` / `decode_sol_model` compute the bytes-moved
   speed-of-light bound for a given image, the denominator of "fraction
   of roofline" reporting;
@@ -22,7 +22,7 @@ from __future__ import annotations
 import contextlib
 import pathlib
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -58,10 +58,12 @@ def annotate(name: str):
         yield
 
 
-def device_sync_time(fn: Callable, reps: int = 5, device="cuda") -> float:
-    """Best-of-reps seconds of fn() after one warm-up call, on the host
-    clock between two synchronizations of `device` (torch.cuda.synchronize
-    on the card, so the time covers the work fn enqueued)."""
+def device_sync_times(fn: Callable, reps: int = 5,
+                      device="cuda") -> List[float]:
+    """Seconds of each of `reps` runs of fn() after one warm-up call, on
+    the host clock between two synchronizations of `device`
+    (torch.cuda.synchronize on the card, so each time covers the work fn
+    enqueued)."""
     from .. import _device
 
     dev = _device(device)
@@ -72,13 +74,18 @@ def device_sync_time(fn: Callable, reps: int = 5, device="cuda") -> float:
 
     fn()
     sync()
-    best = float("inf")
+    out = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         sync()
-        best = min(best, time.perf_counter() - t0)
-    return best
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def device_sync_time(fn: Callable, reps: int = 5, device="cuda") -> float:
+    """Best-of-reps seconds of fn() (see `device_sync_times`)."""
+    return min(device_sync_times(fn, reps, device))
 
 
 # -- speed-of-light models (bytes moved at minimum, HBM-bandwidth bound) ----

@@ -22,10 +22,9 @@ from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.models import decode_v3 as td3
 from qoi_tpu_torch.ops import fsm as tfsm
 from torch_testutil import (as_u32, assert_same, e2e_cases, e2e_image,
-                            to_torch)
+                            oracle_built, to_torch)
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 
 def _stream(img):

@@ -16,10 +16,9 @@ from qoi_tpu_torch import oracle
 from qoi_tpu_torch.kernels import expand as texpand
 from qoi_tpu_torch.models import decode_v3 as td3
 from qoi_tpu_torch.ops import fsm as tfsm
-from torch_testutil import as_u32, assert_same, to_torch
+from torch_testutil import as_u32, assert_same, oracle_built, to_torch
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 #: every stream of the class tests pads to this many bytes, so the JAX
 #: side compiles one program per entry kind

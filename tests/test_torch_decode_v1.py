@@ -20,10 +20,9 @@ from qoi_tpu_torch.models import decode_pipeline as tv1
 from qoi_tpu_torch.ops import link as tlink
 from qoi_tpu_torch.ops import scans as tscans
 from qoi_tpu_torch.ops import table as ttable
-from torch_testutil import assert_same, to_torch
+from torch_testutil import assert_same, oracle_built, to_torch
 
-needs_oracle = pytest.mark.skipif(not oracle.available(),
-                                  reason="oracle not built")
+needs_oracle = pytest.mark.usefixtures("oracle_built")
 
 #: stream bodies of the JAX comparisons pad to this many bytes and decode
 #: into N_PX pixels, so the JAX side compiles one program a function

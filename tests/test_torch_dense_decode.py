@@ -16,10 +16,9 @@ from qoi_tpu_torch.kernels import slide as tslide
 from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.models import decode_v3 as td3
 from qoi_tpu_torch.utils import testimages
-from torch_testutil import as_u32, assert_same, to_torch
+from torch_testutil import as_u32, assert_same, oracle_built, to_torch
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 CLASSES = {
     "photo": lambda: testimages.photo(96, 64, 4, seed=5),

@@ -23,10 +23,9 @@ from qoi_tpu_torch.ops import compact as tcompact
 from qoi_tpu_torch.ops import scans as tscans
 from qoi_tpu_torch.ops import table as ttable
 from torch_testutil import (as_u32, assert_same, e2e_cases, e2e_image,
-                            to_torch)
+                            oracle_built, to_torch)
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 
 def _px4(img):

@@ -19,9 +19,9 @@ from qoi_tpu_torch import oracle
 from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.utils import fuzzcases as fz
 from qoi_tpu_torch.utils import testimages
+from torch_testutil import oracle_built
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 FAMILIES = "abcdefg"
 

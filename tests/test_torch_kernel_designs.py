@@ -30,10 +30,7 @@ from qoi_tpu_torch.kernels import block_maps as tbm
 from qoi_tpu_torch.kernels import expand as texpand
 from qoi_tpu_torch.models import decode_pipeline
 from qoi_tpu_torch.models import decode_v3 as td3
-from torch_testutil import as_u32, assert_same, to_torch
-
-needs_oracle = pytest.mark.skipif(not oracle.available(),
-                                  reason="oracle not built")
+from torch_testutil import as_u32, assert_same, require_oracle, to_torch
 
 _ABS = 0x41
 
@@ -143,12 +140,14 @@ def pass1_cases():
 @pytest.mark.parametrize("segs", [1, 2, 5, 12, 32, 128])
 @pytest.mark.parametrize("case", [
     "random",
-    pytest.param("mixed", marks=needs_oracle),
-    pytest.param("palette_alpha", marks=needs_oracle)])
+    "mixed",
+    "palette_alpha"])
 def test_segmented_block_maps_equal_whole_walk(pass1_cases, case, segs):
     """S = 12 is the kernel's. S = 5 and 12 leave b
     (96, or the streams' power of two) not a multiple of S; S = 128
     leaves segments empty."""
+    if case != "random":
+        require_oracle()
     planes, want_jax = pass1_cases[case]
     whole = tbm.block_maps_plain(*(to_torch(x) for x in planes))
     got = _segmented_block_maps(*(to_torch(x) for x in planes), segs)
@@ -222,10 +221,10 @@ _FILL_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", [
-    pytest.param(c, marks=needs_oracle) if "stream" in c or "dense" in c
-    else c for c in _FILL_CASES])
+@pytest.mark.parametrize("case", list(_FILL_CASES))
 def test_direct_fill_equals_telescoping_expand(case):
+    if "stream" in case or "dense" in case:
+        require_oracle()
     pix_off, px32, cap = _FILL_CASES[case]()
     got = _fill(pix_off, px32, cap)
     want_t = texpand.expand_px_xla(to_torch(pix_off), to_torch(px32), cap)

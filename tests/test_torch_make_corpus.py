@@ -9,14 +9,13 @@ import sys
 import numpy as np
 import pytest
 
-from qoi_tpu_torch import oracle
 from qoi_tpu_torch.utils import make_corpus
+from torch_testutil import oracle_built
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 
 @pytest.mark.parametrize("which", ["full", "small"])

@@ -8,9 +8,9 @@ import pytest
 from qoi_tpu_torch import corpus, oracle
 from qoi_tpu_torch.io import image_desc
 from qoi_tpu_torch.utils import make_corpus
+from torch_testutil import oracle_built
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 
 @pytest.fixture(scope="module")

@@ -19,10 +19,9 @@ from qoi_tpu_torch.kernels import numeric_scan as tns
 from qoi_tpu_torch.models import decode_pipeline as tv1
 from qoi_tpu_torch.models import decode_v3 as td3
 from qoi_tpu_torch.models import scan_codec as tscan
-from torch_testutil import as_u32, assert_same, to_torch
+from torch_testutil import as_u32, assert_same, oracle_built, to_torch
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 #: every stream pads to this many bytes (b = 2048 positions, nb = 32
 #: lanes), so the JAX side compiles one program a function

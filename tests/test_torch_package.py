@@ -68,7 +68,8 @@ sys.modules["jax"] = None
 sys.modules["qoi_tpu"] = None
 import numpy as np
 import qoi_tpu_torch
-from qoi_tpu_torch import (config, format, oracle, io, cli, corpus, bench)
+from qoi_tpu_torch import (config, format, oracle, io, cli, corpus, bench,
+                           headline, abperf)
 from qoi_tpu_torch.models import (pipeline, decode_v3, decode_pipeline,
                                   decode_v2, streamed, scan_codec, batch)
 from qoi_tpu_torch.utils import profiling

@@ -13,10 +13,9 @@ from qoi_tpu.utils import testimages
 from qoi_tpu_torch import format as fmt
 from qoi_tpu_torch import oracle
 from qoi_tpu_torch.models import scan_codec as tscan
-from torch_testutil import e2e_cases, e2e_image
+from torch_testutil import e2e_cases, e2e_image, oracle_built
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 CPU = torch.device("cpu")
 

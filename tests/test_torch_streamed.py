@@ -14,9 +14,9 @@ from qoi_tpu_torch import oracle
 from qoi_tpu_torch.config import EngineConfig
 from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.models import streamed
+from torch_testutil import oracle_built
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 CPU = torch.device("cpu")
 

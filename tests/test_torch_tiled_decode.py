@@ -21,11 +21,11 @@ from qoi_tpu_torch.parallel.launch import RankPool
 from qoi_tpu_torch.utils import testimages
 
 import torch_parallel_tasks as tasks
+from torch_testutil import oracle_built
 
 S = 4
 
-pytestmark = pytest.mark.skipif(not oracle.available(),
-                                reason="oracle not built")
+pytestmark = pytest.mark.usefixtures("oracle_built")
 
 
 @pytest.fixture(scope="module")

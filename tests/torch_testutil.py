@@ -1,8 +1,10 @@
 """Helpers shared by the qoi_tpu_torch CPU tests."""
 import numpy as np
+import pytest
 import torch
 
 from qoi_tpu.utils import testimages
+from qoi_tpu_torch import oracle
 
 
 def as_u32(x):
@@ -37,3 +39,21 @@ def e2e_image(name, ch):
     if name in extra:
         return extra[name]()
     return testimages.edge_case_suite(ch)[name]
+
+
+def require_oracle():
+    """Skip the calling test unless the C++ oracle library is built (or
+    builds now). Decided when a test runs, never when a module is
+    imported: the port's oracle builds under a lock, so a worker that
+    starts during another's build waits for it instead of skipping."""
+    if not oracle.available():
+        pytest.skip("oracle not built")
+
+
+@pytest.fixture(scope="session")
+def oracle_built():
+    """The oracle gate of require_oracle, as a fixture for
+    `pytest.mark.usefixtures("oracle_built")` (a module that uses it
+    imports it, so that pytest finds it). Session-scoped, so it is set up
+    before a module's own fixtures, which may call the oracle."""
+    require_oracle()
