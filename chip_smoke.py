@@ -6,10 +6,14 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the nine kernels against its plain PyTorch
-twin (results must be exactly equal): the six parallel ones and the
-numeric re-scan at the shapes their paths give them at 4K, the two
-sequential codec scans at 65,536 pixels from a random entry state;
+in parallel), holds each of the twelve kernels against its plain PyTorch
+twin (results must be exactly equal): the six parallel ones, the
+numeric re-scan and the decode's three one-pass scans (fsm_scan,
+initial_scan, anch_scan; anch_scan also at the surgical round's (64, b)
+rows, and torch.cumsum of an int32 plane timed beside them as a
+yardstick of one pass, not the same function) at the shapes their paths
+give them at 4K, the two sequential codec scans at 65,536 pixels from a
+random entry state;
 numeric_scan also at a 4 MiB streamed tile's shape, (8192, 512), timed, and
 the ptxas report of its build (registers, shared memory, spills);
 slide_val also at a sequence-parallel tile's shape (405, 40960).
@@ -299,6 +303,7 @@ def main() -> int:
     from qoi_tpu_torch.kernel_profile import cuda_ms
     from qoi_tpu_torch.kernels import _build
     from qoi_tpu_torch.kernels import block_maps as kbm
+    from qoi_tpu_torch.kernels import blocked_scan as kbs
     from qoi_tpu_torch.kernels import encode_stage as kstage
     from qoi_tpu_torch.kernels import expand as kexp
     from qoi_tpu_torch.kernels import numeric_scan as kns
@@ -513,6 +518,54 @@ def main() -> int:
         f"({by})")
     del planes, root, val, entry, got, want
     phase_done("numeric_scan vs twin")
+
+    # F, W, A: the decode's three one-pass scans (kernels/blocked_scan) at
+    # the 4K mixed stream's path shapes: its padded bytes, _initial_w's
+    # leaf and npix, _anchored_w's leaf from the round-1 px over the
+    # stream and over the surgical round's (64, b) rows
+    _, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
+    leaf_w = decode_v3._initial_leaf(cls, r6, d32, lit32).to(torch.int32)
+    npix32 = npix.to(torch.int32)
+    px1, *_ = decode_v3._decode_core(data, clen, max_rounds=1)
+    leaf_a = decode_v3._anch_leaf(cls, r6, d32, px1).to(torch.int32)[None]
+    del cls, r6, d32, lit32, npix, px1
+    # bytes: each input read once, each output written once; operations:
+    # one combine an element (~40 integer operations for the FSM's five
+    # digit lookups and the initial combine's ten fields, ~8 for anch)
+    for name, args, kern, plain, nbytes, ops, site in (
+            ("fsm_scan", (data,), kbs.fsm_scan, kbs.fsm_scan_plain,
+             5 * m, 40 * m, "qoi_tpu/ops/fsm.py:82"),
+            ("initial_scan", (leaf_w, npix32), kbs.initial_scan,
+             kbs.initial_scan_plain, 20 * m, 40 * m,
+             "qoi_tpu/models/decode_v3.py:197"),
+            ("anch_scan", (leaf_a,), kbs.anch_scan, kbs.anch_scan_plain,
+             8 * m, 8 * m, "qoi_tpu/models/decode_v3.py:238")):
+        got, want = kern(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(compare(f"{name}[{i}]", g, w_)
+                  for i, (g, w_) in enumerate(zip(got, want)))
+        del got, want
+        log(f"{name} on {[tuple(a.shape) for a in args]} (the blocked_scan "
+            f"call at {site})")
+        row(name, "blocked_scan.cu", f"qoi_tpu/ops/scans.py:102 via {site}",
+            err, cuda_ms(lambda: kern(*args), 20),
+            cuda_ms(lambda: plain(*args), 3), nbytes, ops)
+    rows = leaf_a.reshape(-1, decode_v3._scan_block_len(m))[:64].contiguous()
+    compare("anch_scan rows", kbs.anch_scan(rows), kbs.anch_scan_plain(rows))
+    bms, _ = bound(8 * rows.numel(), 8 * rows.numel())
+    log(f"anch_scan at the surgical round's rows {tuple(rows.shape)} "
+        f"(qoi_tpu/models/decode_v3.py:266): equal to twin; "
+        f"{cuda_ms(lambda: kbs.anch_scan(rows), 20):.4f} ms vs plain "
+        f"{cuda_ms(lambda: kbs.anch_scan_plain(rows), 3):.4f} ms; bound "
+        f"{bms:.4f} ms (bytes)")
+    bms, _ = bound(12 * m, m)
+    log(f"yardstick, not the same function: torch.cumsum of the ({m},) "
+        f"int32 npix plane (int64 out), one pass of PyTorch's own scan: "
+        f"{cuda_ms(lambda: torch.cumsum(npix32, 0), 20):.4f} ms; bound "
+        f"{bms:.4f} ms (bytes)")
+    del leaf_w, npix32, leaf_a, rows
+    phase_done("blocked scans vs twins")
 
     px, starts, _, pix_off, conv, _, _ = decode_v3._decode_core(data, clen)
     check(conv, "4K mixed stream did not converge for the expand input")
@@ -1228,13 +1281,15 @@ def main() -> int:
         log(f"bench.main 1 --synthetic small --nopng --onlytotals --json "
             f"--device cuda: rc 0, {ms:.3f} ms")
 
-    counted("main-path", ("slide_val", "expand_px", "block_maps"), main_path)
+    counted("main-path", ("slide_val", "expand_px", "block_maps", "fsm_scan",
+                          "initial_scan", "anch_scan"), main_path)
     counted("pack-encode", ("place_words",), pack_path)
     counted("staging", ("encode_stage", "place_words"), staging_path)
-    counted("dense-decode", ("slide_val2", "block_maps", "expand_px"),
-            dense_path)
+    counted("dense-decode", ("slide_val2", "block_maps", "expand_px",
+                             "fsm_scan", "initial_scan"), dense_path)
     counted("streamed", ("slide_val", "block_maps", "expand_px",
-                         "decode_scan", "encode_scan"), streamed_path)
+                         "decode_scan", "encode_scan", "fsm_scan",
+                         "initial_scan"), streamed_path)
     def cross_check_path():
         cc_peaks = []
 
@@ -1418,7 +1473,8 @@ def main() -> int:
         return max(x["peak_gib"] for x in res), launches
 
     try:
-        counted("sequence-parallel", ("slide_val",), seq_parallel_path)
+        counted("sequence-parallel", ("slide_val", "fsm_scan"),
+                seq_parallel_path)
     finally:
         seq_pool.close()
         seq_ctx.cleanup()

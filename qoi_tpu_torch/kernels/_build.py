@@ -50,6 +50,9 @@ _SIGNATURES = {
     "qoi_encode_scan": [_P, ctypes.c_longlong, _P, _P, _P],
     "qoi_numeric_scan": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          _P],
+    "qoi_fsm_scan": [_P, _P, _P, ctypes.c_longlong, _P],
+    "qoi_initial_scan": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P],
+    "qoi_anch_scan": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
 #: launches per kernel since the last `reset_launches()`; each wrapper
@@ -58,7 +61,8 @@ launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "block_maps": 0, "slide_val2": 0,
                             "place_words": 0, "encode_stage": 0,
                             "encode_scan": 0, "decode_scan": 0,
-                            "numeric_scan": 0}
+                            "numeric_scan": 0, "fsm_scan": 0,
+                            "initial_scan": 0, "anch_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -44,6 +44,7 @@ from .. import format as fmt
 from .._bits import swar_sub, to_i32, u32
 from ..kernels.block_maps import (_CLS_ADD, _CLS_ID, _CLS_INDEX, _CLS_RGB,
                                   _CLS_RGBA, block_maps)
+from ..kernels.blocked_scan import anch_scan, initial_scan
 from ..kernels.expand import expand_px
 from ..kernels.numeric_scan import numeric_scan
 from ..kernels.slide import slide_val2
@@ -109,40 +110,16 @@ def _fields(data: torch.Tensor, chunks_len):
     return starts, cls, r6, d32, lit32, npix
 
 
-def _initial_comb(p1, p2):
-    """Compose two packed affine (alpha, hash) maps, p2 after p1."""
-    ra1, g1 = p1 & 1, (p1 >> 1) & 1
-    t1, e1, va1 = (p1 >> 2) & 63, (p1 >> 8) & 63, (p1 >> 14) & 0xFF
-    ra2, g2 = p2 & 1, (p2 >> 1) & 1
-    t2, e2, va2 = (p2 >> 2) & 63, (p2 >> 8) & 63, (p2 >> 14) & 0xFF
-    g = g1 & g2
-    t = (g2 * t1 + (1 - ra1) * t2) & 63
-    e = (g2 * e1 + e2 + ra1 * t2 * va1) & 63
-    va = torch.where(ra2 != 0, va2, va1)
-    return (ra1 | ra2) | (g << 1) | (t << 2) | (e << 8) | (va << 14)
-
-
 def _entry_hash(entry_px32):
     """Hash of the incoming px: the seed's, or that of a 0-d u32 tensor."""
     return _SEED_HASH if entry_px32 is None else _hash_packed(entry_px32)
 
 
-def _initial_w(cls, r6, d32, lit32, npix, entry_px32=None):
-    """Optimistic per-byte written-slot estimate as ONE affine scan over
-    the coupled (alpha, hash) state, co-scanned with the pixel-offset
-    cumsum:
-
-        a' = ra ? va : a                 (an RGBA literal sets alpha)
-        h' = g*h + t*a + e   (mod 64)    (g, t, e per op class)
-
-    with the five coefficients packed as [ra:1 | g:1 | t:6 | e:6 | va:8].
-    Exact unless an INDEX changed alpha between RGBA and RGB chunks (the
-    fixpoint corrects that). `entry_px32` (0-d int64 u32, default the
-    seed) is the incoming px of a chained tile: its hash seeds h and its
-    alpha seeds a. Returns (w, pix_off), both (M,) int64."""
+def _initial_leaf(cls, r6, d32, lit32):
+    """Packed affine leaf [ra:1 | g:1 | t:6 | e:6 | va:8] of
+    `_initial_w`'s recurrence, (M,) int64: ID (g=1), ADD (g=1, e=dh),
+    RGBA (e=habs; ra=1, va=alpha), RGB (t=11, e=c), INDEX (e=r6)."""
     m3, m5, m7, m11 = fmt.HASH_MULTIPLIERS
-    entry_alpha = (fmt.SEED_PIXEL[3] if entry_px32 is None
-                   else (entry_px32 >> 24) & 0xFF)
     is_rgba = cls == _CLS_RGBA
     is_rgb = cls == _CLS_RGB
     b2, b3 = lit32 & 0xFF, (lit32 >> 8) & 0xFF
@@ -158,12 +135,30 @@ def _initial_w(cls, r6, d32, lit32, npix, entry_px32=None):
         torch.where(is_rgb, c_rgb,
         torch.where(cls == _CLS_INDEX, r6,
         torch.where(cls == _CLS_ADD, dh, 0))))
-    packed = (is_rgba.to(torch.int64) | (g << 1) | (t << 2) | (e << 8)
-              | (torch.where(is_rgba, b5, 0) << 14))
+    return (is_rgba.to(torch.int64) | (g << 1) | (t << 2) | (e << 8)
+            | (torch.where(is_rgba, b5, 0) << 14))
 
-    ps, inc = assoc_scan(
-        lambda a, b: (_initial_comb(a[0], b[0]), a[1] + b[1]),
-        (packed, npix))
+
+def _initial_w(cls, r6, d32, lit32, npix, entry_px32=None):
+    """Optimistic per-byte written-slot estimate as ONE affine scan over
+    the coupled (alpha, hash) state, co-scanned with the pixel-offset
+    cumsum:
+
+        a' = ra ? va : a                 (an RGBA literal sets alpha)
+        h' = g*h + t*a + e   (mod 64)    (g, t, e per op class)
+
+    on `_initial_leaf`'s packed coefficients (`initial_scan`: the CUDA
+    kernel of kernels/blocked_scan.py on the card; the leaf is built in
+    plain torch). Exact unless an INDEX changed alpha between RGBA and
+    RGB chunks (the fixpoint corrects that). `entry_px32` (0-d int64 u32,
+    default the seed) is the incoming px of a chained tile: its hash
+    seeds h and its alpha seeds a. Returns (w, pix_off), both (M,)
+    int64."""
+    entry_alpha = (fmt.SEED_PIXEL[3] if entry_px32 is None
+                   else (entry_px32 >> 24) & 0xFF)
+    ps, inc = initial_scan(_initial_leaf(cls, r6, d32, lit32).to(torch.int32),
+                           npix.to(torch.int32))
+    ps = ps.to(torch.int64)
     gs, ts_, es = (ps >> 1) & 1, (ps >> 2) & 63, (ps >> 8) & 63
     w = (gs * _entry_hash(entry_px32) + ts_ * entry_alpha + es) & 63
     return w, inc - npix
@@ -182,18 +177,13 @@ def _anch_leaf(cls, r6, d32, px32):
     return g | (e << 1)
 
 
-def _anch_comb(p1, p2):
-    g1, e1 = p1 & 1, p1 >> 1
-    g2, e2 = p2 & 1, p2 >> 1
-    return (g1 & g2) | (((g2 * e1 + e2) & 63) << 1)
-
-
 def _anchored_w(cls, r6, d32, px32, entry_px32=None):
     """Next-round written-slot estimate from a resolve's px, re-anchored
     at every reset chunk: INDEX r writes slot r (the table invariant),
     RGB/RGBA write hash(px), ADD/RUN add hash(delta) mod 64. Errors
     remain only at RGB chunks whose resolved alpha was poisoned."""
-    ps = assoc_scan(_anch_comb, _anch_leaf(cls, r6, d32, px32))
+    leaf = _anch_leaf(cls, r6, d32, px32).to(torch.int32)
+    ps = anch_scan(leaf[None])[0].to(torch.int64)
     return ((ps & 1) * _entry_hash(entry_px32) + (ps >> 1)) & 63
 
 
@@ -201,7 +191,8 @@ def _anchored_w_rows(cls_g, r6_g, d32_g, px_g, entry_h):
     """`_anchored_w` over independent blocks: (K, b) planes scanned along
     the last axis, one entry hash per row ((K,) int64) -- the surgical
     round's narrow rebuild."""
-    ps = assoc_scan(_anch_comb, _anch_leaf(cls_g, r6_g, d32_g, px_g))
+    ps = anch_scan(_anch_leaf(cls_g, r6_g, d32_g, px_g).to(torch.int32))
+    ps = ps.to(torch.int64)
     return ((ps & 1) * entry_h[:, None] + (ps >> 1)) & 63
 
 

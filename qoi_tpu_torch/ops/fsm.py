@@ -5,42 +5,18 @@ A chunk's byte length is a pure function of its first byte (qoi.h:547-575),
 so "is byte i a chunk start?" is a 5-state FSM over the byte stream (state
 = bytes remaining until the next chunk start). Each byte's transition is a
 map {0..4} -> {0..4}, packed base-8 into one integer; maps compose
-associatively, so one scan resolves every state.
+associatively, so one scan resolves every state: `fsm_scan`, the CUDA
+kernel of kernels/blocked_scan.py on the card.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import format as fmt
-from .scans import assoc_scan
-
-_NSTATES = 5
-
-
-def chunk_byte_len(b: torch.Tensor) -> torch.Tensor:
-    """Chunk length implied by a first byte (reference qoi.h:547-575)."""
-    b = b.to(torch.int64)
-    return torch.where(b == fmt.OP_RGB, 4,
-           torch.where(b == fmt.OP_RGBA, 5,
-           torch.where((b & fmt.MASK_2) == fmt.OP_LUMA, 2, 1)))
-
-
-def _pack_map(f0: torch.Tensor) -> torch.Tensor:
-    """Pack the 5-state map [f0, 0, 1, 2, 3] into base-8 digits: digit s
-    holds f(s). Only state 0's transition depends on the byte."""
-    const = 0
-    for s in range(1, _NSTATES):
-        const |= (s - 1) << (3 * s)
-    return f0.to(torch.int64) | const
-
-
-def _compose_maps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """b after a: c[s] = b[a[s]], on base-8-packed maps (elementwise)."""
-    c = torch.zeros_like(a)
-    for s in range(_NSTATES):
-        a_s = (a >> (3 * s)) & 7
-        c = c | (((b >> (3 * a_s)) & 7) << (3 * s))
-    return c
+# the FSM's leaf and combine live beside the scan kernel that builds and
+# composes them (kernels/blocked_scan.py); tiled_decode composes the
+# ranks' maps on the host with them
+from ..kernels.blocked_scan import (  # noqa: F401
+    _compose_maps, _pack_map, chunk_byte_len, fsm_scan)
 
 
 def chunk_starts_and_state(data: torch.Tensor, chunks_len):
@@ -52,8 +28,7 @@ def chunk_starts_and_state(data: torch.Tensor, chunks_len):
     Returns ((M,) bool starts, (M,) int8 state_before): how many bytes of
     the current chunk still precede position i (0 = i starts a chunk).
     The streamed decoder ends its tiles at chunk boundaries with it."""
-    trans = _pack_map(chunk_byte_len(data) - 1)
-    after = assoc_scan(_compose_maps, trans)
+    after = fsm_scan(data)
     # state BEFORE byte i = state after byte i-1 (0 before byte 0)
     state_before = torch.cat([after.new_zeros(1),
                               (after & 7)[:-1]]).to(torch.int8)

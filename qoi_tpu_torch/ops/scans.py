@@ -3,10 +3,12 @@ associative scan (port of qoi_tpu/ops/scans.py).
 
 The JAX package routes its big cumulative ops through `blocked_scan`, a
 `lax.scan` over position-in-block shaped for the TPU's vector unit.
-PyTorch has `cumsum` on every device, `assoc_scan` below covers the
-custom combines with log-depth doubling, and the cumulative maxes the
-port's callers take are `last_true_index`, a count and a scatter
-(`cummax` is the general form).
+PyTorch has `cumsum` on every device; the decode main path's three
+custom combines (the chunk-start FSM, `_initial_w`, `_anchored_w`) are
+one-pass CUDA kernels (kernels/blocked_scan.py); `assoc_scan` below
+covers the other combines with log-depth doubling; and the cumulative
+maxes the port's callers take are `last_true_index`, a count and a
+scatter (`cummax` is the general form).
 """
 from __future__ import annotations
 

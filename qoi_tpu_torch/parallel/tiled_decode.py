@@ -71,11 +71,11 @@ def _shard_fields(data: torch.Tensor, chunks_len: int, ax):
     mb = data.shape[0]
     dev = data.device
     io = torch.arange(mb, device=dev)
-    trans = fsm._pack_map(fsm.chunk_byte_len(data) - 1)
-    incl = assoc_scan(fsm._compose_maps, trans)
+    incl = fsm.fsm_scan(data)      # the kernel of kernels/blocked_scan
     d = data[:4].to(torch.int64)
     halo_w = d[0] | d[1] << 8 | d[2] << 16 | d[3] << 24
-    st1 = ax.all_gather(torch.stack([incl[-1], halo_w])).cpu()   # (S, 2)
+    st1 = ax.all_gather(torch.stack([incl[-1].to(torch.int64),
+                                     halo_w])).cpu()   # (S, 2)
     m = fsm._pack_map(torch.tensor(0))
     for x in st1[:ax.index, 0]:
         m = fsm._compose_maps(m, x)

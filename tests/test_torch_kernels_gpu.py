@@ -17,6 +17,7 @@ from qoi_tpu_torch import oracle
 from qoi_tpu_torch._bits import to_i32
 from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as kbm
+from qoi_tpu_torch.kernels import blocked_scan as kbs
 from qoi_tpu_torch.kernels import encode_stage as kstage
 from qoi_tpu_torch.kernels import expand as kexp
 from qoi_tpu_torch.kernels import numeric_scan as kns
@@ -656,12 +657,113 @@ def test_wrappers_count_launches(dev):
                       torch.zeros(65, dtype=torch.int32, device=dev))
     kns.numeric_scan(z, z, z, torch.zeros((65, 8), dtype=torch.int32,
                                           device=dev))
+    kbs.fsm_scan(z[0].view(torch.uint8))
+    kbs.initial_scan(z[0], z[1])
+    kbs.anch_scan(z)
     torch.cuda.synchronize()
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
                                "block_maps": 1, "slide_val2": 1,
                                "place_words": 1, "encode_stage": 1,
                                "encode_scan": 1, "decode_scan": 1,
-                               "numeric_scan": 1}
+                               "numeric_scan": 1, "fsm_scan": 1,
+                               "initial_scan": 1, "anch_scan": 1}
+
+
+# ---- blocked_scan: the decode's three one-pass scans ---------------------
+
+#: ragged lengths around the kernel's tile (4096) and one whose row has
+#: more than 1024 tile aggregates (the aggregate scan's carry)
+SCAN_LENGTHS = [1, 2, 31, 4095, 4096, 4097, 8193, 70001, 4096 * 1025 + 3]
+
+
+def _same_scan(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_fsm_scan_kernel_matches_twin(dev, n):
+    rng = np.random.default_rng(n)
+    data = torch.from_numpy(rng.integers(0, 256, n + 1).astype(np.uint8))
+    data = data.to(dev)
+    for x in (data[:n], data[1:]):     # the second starts off alignment
+        _same_scan((kbs.fsm_scan(x),), (kbs.fsm_scan_plain(x),))
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("bits", ["fields", "any"])
+def test_initial_scan_kernel_matches_twin(dev, n, bits):
+    """Random bits in every field of the 22-bit leaf and npix in [0, 63),
+    or any 32-bit leaf and any int32 npix: the kernel and the twin agree
+    on every bit pattern."""
+    rng = np.random.default_rng(n + 7)
+    hi = 1 << 22 if bits == "fields" else 1 << 32
+    leaf = to_i32(torch.from_numpy(rng.integers(0, hi, n + 1,
+                                                dtype=np.int64))).to(dev)
+    npix = (rng.integers(0, 63, n + 1) if bits == "fields" else
+            rng.integers(-(1 << 31), 1 << 31, n + 1))
+    npix = torch.from_numpy(npix.astype(np.int32)).to(dev)
+    for a, b in ((leaf[:n], npix[:n]), (leaf[1:], npix[1:])):
+        _same_scan(kbs.initial_scan(a, b), kbs.initial_scan_plain(a, b))
+
+
+@pytest.mark.parametrize("rows,length", [
+    (1, n) for n in SCAN_LENGTHS] + [(64, 16), (64, 8192), (3, 4097),
+                                     (5, 4096 * 3), (64, 1)])
+def test_anch_scan_kernel_matches_twin(dev, rows, length):
+    rng = np.random.default_rng(rows * length)
+    for hi in (128, 1 << 32):
+        leaf = to_i32(torch.from_numpy(rng.integers(
+            0, hi, (rows, length), dtype=np.int64))).to(dev)
+        _same_scan((kbs.anch_scan(leaf),), (kbs.anch_scan_plain(leaf),))
+
+
+def test_blocked_scans_at_a_4k_stream(dev):
+    """The three scans at a 4K mixed stream's path shapes: its padded
+    bytes, `_initial_w`'s leaf and npix, `_anchored_w`'s leaf from the
+    round-1 px, and the surgical round's (64, b) rows of it."""
+    s = oracle.encode(testimages.mixed(3840, 2160, 4, seed=3),
+                      fmt.StreamDesc(3840, 2160, 4))
+    raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(decode_pipeline.bucket_size_fine(len(raw)), np.uint8)
+    pad[: len(raw)] = raw
+    data, clen = torch.from_numpy(pad).to(dev), len(s) - 22
+    _same_scan((kbs.fsm_scan(data),), (kbs.fsm_scan_plain(data),))
+    starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
+    leaf = decode_v3._initial_leaf(cls, r6, d32, lit32).to(torch.int32)
+    npix32 = npix.to(torch.int32)
+    _same_scan(kbs.initial_scan(leaf, npix32),
+               kbs.initial_scan_plain(leaf, npix32))
+    px, *_ = decode_v3._decode_core(data, clen, max_rounds=1)
+    a = decode_v3._anch_leaf(cls, r6, d32, px).to(torch.int32)
+    _same_scan((kbs.anch_scan(a[None]),), (kbs.anch_scan_plain(a[None]),))
+    b = decode_v3._scan_block_len(data.shape[0])
+    rows = a.reshape(-1, b)[:64].contiguous()
+    _same_scan((kbs.anch_scan(rows),), (kbs.anch_scan_plain(rows),))
+
+
+def test_decode_device_launches_each_scan(dev):
+    """A 4K mixed stream's decode takes two rounds: `_decode_device` runs
+    the FSM and initial scans once and the anchored scan in round 2, over
+    the surgical round's rows or, with surgical=False, the stream."""
+    s = oracle.encode(testimages.mixed(3840, 2160, 4, seed=3),
+                      fmt.StreamDesc(3840, 2160, 4))
+    raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(decode_pipeline.bucket_size_fine(len(raw)), np.uint8)
+    pad[: len(raw)] = raw
+    data = torch.from_numpy(pad).to(dev)
+    npc = decode_pipeline.bucket_size(3840 * 2160)
+    for surgical in (True, False):
+        _build.reset_launches()
+        out, conv, rounds = decode_v3._decode_device(data, len(s) - 22, npc,
+                                                     surgical=surgical)
+        torch.cuda.synchronize()
+        assert conv and rounds >= 2
+        assert _build.launches["fsm_scan"] == 1
+        assert _build.launches["initial_scan"] == 1
+        assert _build.launches["anch_scan"] >= 1
 
 
 @pytest.mark.parametrize("ch", [3, 4])

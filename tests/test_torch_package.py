@@ -341,7 +341,8 @@ def test_launch_counts_start_at_zero_and_reset():
     assert set(_build.launches) == {"slide_val", "expand_px", "block_maps",
                                     "slide_val2", "place_words",
                                     "encode_stage", "encode_scan",
-                                    "decode_scan", "numeric_scan"}
+                                    "decode_scan", "numeric_scan",
+                                    "fsm_scan", "initial_scan", "anch_scan"}
     assert all(v == 0 for v in _build.launches.values())
 
 
