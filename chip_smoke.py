@@ -6,14 +6,16 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the twelve kernels against its plain PyTorch
+in parallel), holds each of the fourteen kernels against its plain PyTorch
 twin (results must be exactly equal): the six parallel ones, the
-numeric re-scan and the decode's three one-pass scans (fsm_scan,
-initial_scan, anch_scan; anch_scan also at the surgical round's (64, b)
-rows, and torch.cumsum of an int32 plane timed beside them as a
-yardstick of one pass, not the same function) at the shapes their paths
-give them at 4K, the two sequential codec scans at 65,536 pixels from a
-random entry state;
+numeric re-scan and the decode's one-pass scans in their five forms
+(fsm_scan, the FSM's maps; fsm_starts, its starts and states;
+initial_scan, _initial_w's maps and sums from leaves; initial_w_scan,
+_initial_w from the bytes and starts; anch_scan, also at the surgical
+round's (64, b) rows; torch.cumsum of an int32 plane timed beside them
+as a yardstick of one pass, not the same function) at the shapes their
+paths give them at 4K, the two sequential codec scans at 65,536 pixels
+from a random entry state;
 numeric_scan also at a 4 MiB streamed tile's shape, (8192, 512), timed, and
 the ptxas report of its build (registers, shared memory, spills);
 slide_val also at a sequence-parallel tile's shape (405, 40960).
@@ -62,7 +64,9 @@ just before it and read just after:
      mixed streams, its rounds (a stream that does not converge in 12
      goes to v1); decode_v3._resolve_p with apply="scan" (block_maps,
      compose, the numeric_scan kernel) against apply="vector" on the
-     mixed stream's round 1, px and exit state equal; and
+     mixed stream's round 1, px and exit state equal, its initial w from
+     the fields (_initial_w: initial_scan on the leaves) against
+     _decode_core's from the bytes (initial_w_scan); and
      decode_v3._decode_ladder with the native decoder hidden by a hook of
      this script, which must reach v1 on the adversarial stream, beside
      the native decoder's time. All pixel-identical to the sources or the
@@ -107,8 +111,8 @@ just before it and read just after:
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
 phase's wall seconds, the build, each kernel's time beside its twin's, its
-bound and, for the placement, the time of one PyTorch index_add_ computing
-the same words;
+bound and its share of it and, for the placement, the time of one PyTorch
+index_add_ computing the same words;
 the per-phase times of one frame of each side path and of the main
 decode (one photo and one mixed stream, every step of _decode_core, the
 surgical round beside a full second round, and the expand); the
@@ -419,7 +423,8 @@ def main() -> int:
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"kernel {name}: equal to twin; {ms:.4f} ms vs plain "
             f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({by}: "
-            f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M ops){lib}")
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M ops), "
+            f"{100 * bms / ms:.1f}% of it{lib}")
 
     # A: the events of a 4K mixed frame, as encode_device_wordsum builds them
     ch = pipeline.encode_stage_chunks(px4_of(mixed[0], desc4), n)
@@ -448,7 +453,7 @@ def main() -> int:
         m = data.shape[0]
         b = decode_v3._scan_block_len(m)
         starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
-        w0, _ = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+        w0, _ = kbs.initial_w_scan(data, starts)
         w0 = torch.where(starts, w0, 0)
         return (decode_v3._pos_major(
                     (cls | (r6 << 9) | (w0 << 3)).to(torch.int32), m, b),
@@ -519,24 +524,33 @@ def main() -> int:
     del planes, root, val, entry, got, want
     phase_done("numeric_scan vs twin")
 
-    # F, W, A: the decode's three one-pass scans (kernels/blocked_scan) at
-    # the 4K mixed stream's path shapes: its padded bytes, _initial_w's
-    # leaf and npix, _anchored_w's leaf from the round-1 px over the
-    # stream and over the surgical round's (64, b) rows
-    _, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
+    # F, W, A: the decode's one-pass scans (kernels/blocked_scan) in their
+    # five forms at the 4K mixed stream's path shapes: its padded bytes
+    # (the FSM's maps, its starts and states), _initial_w's leaf and npix,
+    # its bytes and starts (the form _decode_core takes), _anchored_w's
+    # leaf from the round-1 px over the stream and over the surgical
+    # round's (64, b) rows
+    starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
     leaf_w = decode_v3._initial_leaf(cls, r6, d32, lit32).to(torch.int32)
     npix32 = npix.to(torch.int32)
     px1, *_ = decode_v3._decode_core(data, clen, max_rounds=1)
     leaf_a = decode_v3._anch_leaf(cls, r6, d32, px1).to(torch.int32)[None]
     del cls, r6, d32, lit32, npix, px1
-    # bytes: each input read once, each output written once; operations:
-    # one combine an element (~40 integer operations for the FSM's five
-    # digit lookups and the initial combine's ten fields, ~8 for anch)
+    # bytes: each input read once, each output written once (5, 3, 20, 18
+    # and 8 B an element); operations: one combine an element (~40
+    # integer operations for the FSM's five digit lookups and the initial
+    # combine's ten fields, ~8 for anch), the numeric walk of the starts
+    # and bytes forms counted as none beyond it
     for name, args, kern, plain, nbytes, ops, site in (
             ("fsm_scan", (data,), kbs.fsm_scan, kbs.fsm_scan_plain,
              5 * m, 40 * m, "qoi_tpu/ops/fsm.py:82"),
+            ("fsm_starts", (data, clen), kbs.fsm_starts,
+             kbs.fsm_starts_plain, 3 * m, 40 * m, "qoi_tpu/ops/fsm.py:82"),
             ("initial_scan", (leaf_w, npix32), kbs.initial_scan,
              kbs.initial_scan_plain, 20 * m, 40 * m,
+             "qoi_tpu/models/decode_v3.py:197"),
+            ("initial_w_scan", (data, starts), kbs.initial_w_scan,
+             kbs.initial_w_scan_plain, 18 * m, 40 * m,
              "qoi_tpu/models/decode_v3.py:197"),
             ("anch_scan", (leaf_a,), kbs.anch_scan, kbs.anch_scan_plain,
              8 * m, 8 * m, "qoi_tpu/models/decode_v3.py:238")):
@@ -546,8 +560,8 @@ def main() -> int:
         err = max(compare(f"{name}[{i}]", g, w_)
                   for i, (g, w_) in enumerate(zip(got, want)))
         del got, want
-        log(f"{name} on {[tuple(a.shape) for a in args]} (the blocked_scan "
-            f"call at {site})")
+        log(f"{name} on {[tuple(getattr(a, 'shape', ())) for a in args]} "
+            f"(the blocked_scan call at {site})")
         row(name, "blocked_scan.cu", f"qoi_tpu/ops/scans.py:102 via {site}",
             err, cuda_ms(lambda: kern(*args), 20),
             cuda_ms(lambda: plain(*args), 3), nbytes, ops)
@@ -564,7 +578,7 @@ def main() -> int:
         f"int32 npix plane (int64 out), one pass of PyTorch's own scan: "
         f"{cuda_ms(lambda: torch.cumsum(npix32, 0), 20):.4f} ms; bound "
         f"{bms:.4f} ms (bytes)")
-    del leaf_w, npix32, leaf_a, rows
+    del starts, leaf_w, npix32, leaf_a, rows
     phase_done("blocked scans vs twins")
 
     px, starts, _, pix_off, conv, _, _ = decode_v3._decode_core(data, clen)
@@ -839,7 +853,7 @@ def main() -> int:
             lambda: decode_v3._fields(data, clen))
         starts, cls, r6, d32, lit32, npix = f
         (w0, pix_off), ph["initial_w"] = sync_ms(
-            lambda: decode_v3._initial_w(cls, r6, d32, lit32, npix))
+            lambda: kbs.initial_w_scan(data, starts))
         planes, ph["planes"] = sync_ms(lambda: (
             decode_v3._pos_major((cls | (r6 << 9)).to(torch.int32), m, b),
             decode_v3._pos_major(to_i32(d32), m, b),
@@ -1281,15 +1295,16 @@ def main() -> int:
         log(f"bench.main 1 --synthetic small --nopng --onlytotals --json "
             f"--device cuda: rc 0, {ms:.3f} ms")
 
-    counted("main-path", ("slide_val", "expand_px", "block_maps", "fsm_scan",
-                          "initial_scan", "anch_scan"), main_path)
+    counted("main-path", ("slide_val", "expand_px", "block_maps",
+                          "fsm_starts", "initial_w_scan", "anch_scan"),
+            main_path)
     counted("pack-encode", ("place_words",), pack_path)
     counted("staging", ("encode_stage", "place_words"), staging_path)
     counted("dense-decode", ("slide_val2", "block_maps", "expand_px",
-                             "fsm_scan", "initial_scan"), dense_path)
+                             "fsm_starts", "initial_w_scan"), dense_path)
     counted("streamed", ("slide_val", "block_maps", "expand_px",
-                         "decode_scan", "encode_scan", "fsm_scan",
-                         "initial_scan"), streamed_path)
+                         "decode_scan", "encode_scan", "fsm_starts",
+                         "initial_w_scan"), streamed_path)
     def cross_check_path():
         cc_peaks = []
 
@@ -1363,7 +1378,15 @@ def main() -> int:
         m = data.shape[0]
         b = decode_v3._scan_block_len(m)
         starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
-        w0, _ = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+        # _initial_w's two routes: from the fields (initial_scan on the
+        # leaves) and from the bytes (initial_w_scan, _decode_core's)
+        w0, off0 = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+        w0b, off0b = kbs.initial_w_scan(data, starts)
+        check(torch.equal(w0, w0b) and torch.equal(off0, off0b),
+              "_initial_w from the fields differs from initial_w_scan")
+        log("_initial_w on the 4K mixed stream: the leaf route "
+            "(initial_scan) and the bytes route (initial_w_scan) equal")
+        del w0b, off0, off0b
         w0 = torch.where(starts, w0, 0)
         planes = (decode_v3._pos_major((cls | (r6 << 9)).to(torch.int32),
                                        m, b),
@@ -1413,7 +1436,8 @@ def main() -> int:
                               "encode_scan", "decode_scan"), surfaces_path)
     tmp_ctx.cleanup()
     counted("cross-check engines", ("numeric_scan", "block_maps",
-                                    "decode_scan"), cross_check_path)
+                                    "decode_scan", "initial_scan"),
+            cross_check_path)
 
     def seq_parallel_path():
         import hashlib

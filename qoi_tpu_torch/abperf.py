@@ -38,7 +38,8 @@ contain one of the substrings):
   `v3 dense` (dense=True: slide_val2, then the expand), `v1`
   (`decode_pipeline._decode_chunks`), and the ablation ladder
   `abl <phase>`: the cumulative prefix of a decode ending at `starts`
-  (`fsm.chunk_starts_and_state`), `fields`, `initial_w`, `round1`
+  (`fsm.chunk_starts_and_state`: the fsm_starts kernel), `fields`,
+  `initial_w` (`initial_w_scan` from the bytes and starts), `round1`
   (block_maps, compose, apply and the certificate), `anchored_w` and
   `expand` (the whole decode without the surgical round), each checked
   against the full decode's intermediates;
@@ -223,7 +224,9 @@ def _abl_prefix(phase: str, data: torch.Tensor, clen: int, npc: int) -> dict:
     got = {"starts": starts, "npix": npix}
     if phase == "fields":
         return got
-    w0i, pix_off = decode_v3._initial_w(cls, r6, d32, lit32, npix)
+    # the routes _decode_core takes: the starts kernel inside _fields, then
+    # the initial scan from the bytes
+    w0i, pix_off = decode_v3.initial_w_scan(data, starts)
     w0 = torch.where(starts, w0i, 0)
     got["pix_off"] = pix_off
     if phase == "initial_w":

@@ -51,7 +51,10 @@ _SIGNATURES = {
     "qoi_numeric_scan": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          _P],
     "qoi_fsm_scan": [_P, _P, _P, ctypes.c_longlong, _P],
+    "qoi_fsm_starts": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                       _P],
     "qoi_initial_scan": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P],
+    "qoi_initial_w": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     "qoi_anch_scan": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
@@ -62,7 +65,8 @@ launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "place_words": 0, "encode_stage": 0,
                             "encode_scan": 0, "decode_scan": 0,
                             "numeric_scan": 0, "fsm_scan": 0,
-                            "initial_scan": 0, "anch_scan": 0}
+                            "fsm_starts": 0, "initial_scan": 0,
+                            "initial_w_scan": 0, "anch_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -1,22 +1,32 @@
 """Inclusive scans of the decoder's three associative combines: CUDA
-kernel `csrc/blocked_scan.cu` and their plain twins.
+kernel `csrc/blocked_scan.cu` (one pass, decoupled look-back) and their
+plain twins.
 
 Counterpart of qoi_tpu/ops/scans.py::blocked_scan (its lax.scan at :142)
 for the combines the decode main path scans with it:
 
-  fsm_scan      the chunk-start FSM (qoi_tpu/ops/fsm.py:82): (M,) uint8
-                chunk bytes -> (M,) int32 inclusive composed maps, the
-                leaf `_pack_map(chunk_byte_len(b) - 1)` built in place
-  initial_scan  `_initial_w`'s affine (alpha, hash) combine co-scanned
-                with the npix sum (qoi_tpu/models/decode_v3.py:197):
-                (M,) int32 leaves and npix -> (ps (M,) int32, inclusive
-                sum (M,) int64)
-  anch_scan     `_anch_comb` (decode_v3.py:238, :266): (R, L) int32
-                leaves, each row scanned on its own -> (R, L) int32
+  fsm_scan        the chunk-start FSM (qoi_tpu/ops/fsm.py:82): (M,) uint8
+                  chunk bytes -> (M,) int32 inclusive composed maps, the
+                  leaf `_pack_map(chunk_byte_len(b) - 1)` built in place
+  fsm_starts      the same scan applied to state 0, as
+                  `chunk_starts_and_state` (qoi_tpu/ops/fsm.py:70-89):
+                  (M,) bytes, chunks_len -> ((M,) bool starts, (M,) int8
+                  state_before)
+  initial_scan    `_initial_w`'s affine (alpha, hash) combine co-scanned
+                  with the npix sum (qoi_tpu/models/decode_v3.py:197):
+                  (M,) int32 leaves and npix -> (ps (M,) int32, inclusive
+                  sum (M,) int64)
+  initial_w_scan  the same scan from the (M,) bytes and starts, each leaf
+                  built in the kernel as `_fields` and `_initial_leaf`
+                  build it, applied to the entry px: (w, pix_off), (M,)
+                  int64 each, as `decode_v3._initial_w` returns them
+  anch_scan       `_anch_comb` (decode_v3.py:238, :266): (R, L) int32
+                  leaves, each row scanned on its own -> (R, L) int32
 
-Each output element is combine(earlier, later) folded from its row's
+Each inclusive map is combine(earlier, later) folded from its row's
 first element, which is its leaf unchanged. The twins are `assoc_scan`
-with the combine. CPU tensors take the twin; CUDA tensors launch the
+with the combine, and for fsm_starts and initial_w_scan the plain
+arithmetic around it. CPU tensors take the twin; CUDA tensors launch the
 kernel or raise. Leaves are int32 bit patterns, read as u32.
 """
 from __future__ import annotations
@@ -27,15 +37,21 @@ from .. import format as fmt
 from .._bits import to_i32, u32
 from ..ops.scans import assoc_scan
 from . import _build
+from .block_maps import _CLS_ADD, _CLS_ID, _CLS_INDEX, _CLS_RGB, _CLS_RGBA
 
-#: elements a tile of the kernel (csrc/blocked_scan.cu kTile: 256
-#: threads x 16); a row of L elements keeps ceil(L / TILE) - 1 tile
-#: aggregates in the scratch
-TILE = 4096
-#: rows a launch takes (the grid's y dimension)
-MAX_ROWS = 65535
+#: elements a tile of the kernel (csrc/blocked_scan.cu: 512 threads x 32
+#: FSM bytes, x 16 initial_w_scan bytes, x 8 initial_scan leaves, x 16
+#: anch_scan leaves); a tile publishes one status word
+TILE_FSM = 16384
+TILE_BYTES = 8192
+TILE_LEAVES = 4096
+TILE_ANCH = 8192
+#: longest bytes-form row: the status word holds a 40-bit npix sum, and
+#: a chunk covers at most 62 pixels
+MAX_BYTES = 1 << 34
 
 _NSTATES = 5
+_SEED_ALPHA = fmt.SEED_PIXEL[3]
 
 
 def chunk_byte_len(b: torch.Tensor) -> torch.Tensor:
@@ -84,10 +100,112 @@ def _anch_comb(p1, p2):
     return (g1 & g2) | (((g2 * e1 + e2) & 63) << 1)
 
 
+def _hash_packed(px32: torch.Tensor) -> torch.Tensor:
+    """(3r + 5g + 7b + 11a) & 63 from packed u32 (reference qoi.h:92)."""
+    m = fmt.HASH_MULTIPLIERS
+    return (m[0] * (px32 & 0xFF) + m[1] * ((px32 >> 8) & 0xFF)
+            + m[2] * ((px32 >> 16) & 0xFF) + m[3] * ((px32 >> 24) & 0xFF)) & 63
+
+
+_SEED_HASH = fmt.hash_rgba(*fmt.SEED_PIXEL)
+
+
+def _shift_up(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x[i + k], zero past the end (all zero when x is shorter than k)."""
+    return torch.cat([x[k:], x.new_zeros(min(k, x.shape[0]))])
+
+
+def _chunk_fields(data: torch.Tensor, starts: torch.Tensor):
+    """Per-byte chunk fields of `decode_v3._fields` from the bytes and the
+    chunk starts. data: (M,) uint8. Returns (cls, r6, d32, lit32, npix),
+    (M,) int64 each; the literals read 4 bytes ahead, zero past M."""
+    d1 = data.to(torch.int64)
+    b2, b3, b4, b5 = (_shift_up(d1, k) for k in (1, 2, 3, 4))
+
+    is_rgb = (d1 == fmt.OP_RGB) & starts
+    is_rgba = (d1 == fmt.OP_RGBA) & starts
+    two = d1 & fmt.MASK_2
+    other = ~is_rgb & ~is_rgba & starts
+    is_index = other & (two == fmt.OP_INDEX)
+    is_diff = other & (two == fmt.OP_DIFF)
+    is_luma = other & (two == fmt.OP_LUMA)
+    is_run = other & (two == fmt.OP_RUN)
+
+    cls = torch.where(is_rgb, _CLS_RGB,
+          torch.where(is_rgba, _CLS_RGBA,
+          torch.where(is_index, _CLS_INDEX,
+          torch.where(is_diff | is_luma | is_run, _CLS_ADD, _CLS_ID))))
+    r6 = torch.where(is_index, d1 & 63, 0)
+    npix = torch.where(is_run, (d1 & 0x3F) + 1, starts.to(torch.int64))
+
+    # mod-256 deltas as the decoder applies them (reference qoi.h:562-572)
+    dr = torch.where(is_diff, ((d1 >> 4) & 3) - 2, 0)
+    dg2 = torch.where(is_diff, ((d1 >> 2) & 3) - 2, 0)
+    db = torch.where(is_diff, (d1 & 3) - 2, 0)
+    vg = (d1 & 0x3F) - 32
+    lr = vg - 8 + ((b2 >> 4) & 0x0F)
+    lb = vg - 8 + (b2 & 0x0F)
+    dr = torch.where(is_luma, lr, dr) & 0xFF
+    dg = torch.where(is_luma, vg, dg2) & 0xFF
+    db = torch.where(is_luma, lb, db) & 0xFF
+    d32 = dr | dg << 8 | db << 16
+    lit32 = b2 | b3 << 8 | b4 << 16 | b5 << 24
+    return cls, r6, d32, lit32, npix
+
+
+def _initial_leaf(cls, r6, d32, lit32):
+    """Packed affine leaf [ra:1 | g:1 | t:6 | e:6 | va:8] of
+    `_initial_w`'s recurrence, (M,) int64: ID (g=1), ADD (g=1, e=dh),
+    RGBA (e=habs; ra=1, va=alpha), RGB (t=11, e=c), INDEX (e=r6)."""
+    m3, m5, m7, m11 = fmt.HASH_MULTIPLIERS
+    is_rgba = cls == _CLS_RGBA
+    is_rgb = cls == _CLS_RGB
+    b2, b3 = lit32 & 0xFF, (lit32 >> 8) & 0xFF
+    b4, b5 = (lit32 >> 16) & 0xFF, (lit32 >> 24) & 0xFF
+    dh = (m3 * (d32 & 0xFF) + m5 * ((d32 >> 8) & 0xFF)
+          + m7 * ((d32 >> 16) & 0xFF)) & 63
+    habs = (m3 * b2 + m5 * b3 + m7 * b4 + m11 * b5) & 63
+    c_rgb = (m3 * b2 + m5 * b3 + m7 * b4) & 63
+    is_reset = is_rgb | is_rgba | (cls == _CLS_INDEX)
+    g = (~is_reset).to(torch.int64)
+    t = torch.where(is_rgb, m11 & 63, 0)
+    e = torch.where(is_rgba, habs,
+        torch.where(is_rgb, c_rgb,
+        torch.where(cls == _CLS_INDEX, r6,
+        torch.where(cls == _CLS_ADD, dh, 0))))
+    return (is_rgba.to(torch.int64) | (g << 1) | (t << 2) | (e << 8)
+            | (torch.where(is_rgba, b5, 0) << 14))
+
+
+def _initial_apply(ps: torch.Tensor, inc: torch.Tensor, npix: torch.Tensor,
+                   entry_px32=None):
+    """`_initial_w`'s epilogue: the inclusive maps applied to the entry
+    px's hash and alpha (0-d int64 u32, default the seed), and the
+    exclusive npix sum. Returns (w, pix_off), (M,) int64 each."""
+    if entry_px32 is None:
+        h0, a0 = _SEED_HASH, _SEED_ALPHA
+    else:
+        h0, a0 = _hash_packed(entry_px32), (entry_px32 >> 24) & 0xFF
+    ps = ps.to(torch.int64)
+    gs, ts_, es = (ps >> 1) & 1, (ps >> 2) & 63, (ps >> 8) & 63
+    return (gs * h0 + ts_ * a0 + es) & 63, inc - npix.to(torch.int64)
+
+
 def fsm_scan_plain(data: torch.Tensor) -> torch.Tensor:
     """Plain twin of fsm_scan: log-depth `assoc_scan` of the maps."""
     return assoc_scan(_compose_maps,
                       _pack_map(chunk_byte_len(data) - 1)).to(torch.int32)
+
+
+def fsm_starts_plain(data: torch.Tensor, chunks_len):
+    """Plain twin of fsm_starts: the maps' state 0 digit, one byte late
+    (0 before byte 0), and the `p < chunks_len` guard."""
+    after = fsm_scan_plain(data)
+    m = data.shape[0]
+    state_before = torch.zeros(m, dtype=torch.int8, device=data.device)
+    state_before[1:] = (after[:-1] & 7).to(torch.int8)
+    io = torch.arange(m, device=data.device)
+    return (state_before == 0) & (io < chunks_len), state_before
 
 
 def initial_scan_plain(leaf: torch.Tensor, npix: torch.Tensor):
@@ -96,6 +214,17 @@ def initial_scan_plain(leaf: torch.Tensor, npix: torch.Tensor):
         lambda a, b: (_initial_comb(a[0], b[0]), a[1] + b[1]),
         (u32(leaf), npix.to(torch.int64)))
     return to_i32(ps), inc
+
+
+def initial_w_scan_plain(data: torch.Tensor, starts: torch.Tensor,
+                         entry_px32=None):
+    """Plain twin of initial_w_scan: the fields, the leaf, the scan and
+    the epilogue in plain torch."""
+    cls, r6, d32, lit32, npix = _chunk_fields(data, starts)
+    ps, inc = initial_scan_plain(
+        _initial_leaf(cls, r6, d32, lit32).to(torch.int32),
+        npix.to(torch.int32))
+    return _initial_apply(ps, inc, npix, entry_px32)
 
 
 def anch_scan_plain(leaf: torch.Tensor) -> torch.Tensor:
@@ -118,10 +247,14 @@ def _check(name: str, dtype: torch.dtype, ndim: int, *tensors) -> None:
                              f"{t.device}")
 
 
-def _scratch(rows: int, length: int, dev: torch.device) -> torch.Tensor:
-    """The kernel's tile aggregates: a u64 sum and a u32 map each."""
-    na = rows * max(-(-length // TILE) - 1, 0)
-    return torch.empty(max(3 * na, 1), dtype=torch.int32, device=dev)
+def _scratch(rows: int, length: int, tile: int, sums: bool,
+             dev: torch.device) -> torch.Tensor:
+    """The kernel's look-back scratch (the C entry zeroes it on the stream
+    before each launch): a ticket, a status word a tile and, for the leaf
+    form, two int64 sums a tile."""
+    blocks = rows * -(-length // tile)
+    return torch.empty(1 + blocks * (3 if sums else 1), dtype=torch.int64,
+                       device=dev)
 
 
 def fsm_scan(data: torch.Tensor) -> torch.Tensor:
@@ -138,10 +271,32 @@ def fsm_scan(data: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(data.device):
         rc = _build.lib().qoi_fsm_scan(
             data.data_ptr(), out.data_ptr(),
-            _scratch(1, m, data.device).data_ptr(), m,
+            _scratch(1, m, TILE_FSM, False, data.device).data_ptr(), m,
             _build.stream_ptr(data.device))
     _build.launched("fsm_scan", rc)
     return out
+
+
+def fsm_starts(data: torch.Tensor, chunks_len):
+    """(M,) uint8 chunk bytes -> ((M,) bool starts, (M,) int8
+    state_before): how many bytes of the current chunk precede byte i (0:
+    i starts a chunk), and starts = state_before == 0 below chunks_len."""
+    _check("fsm_starts", torch.uint8, 1, data)
+    if data.device.type == "cpu":
+        return fsm_starts_plain(data, chunks_len)
+    _build.check_cuda("fsm_starts", data, dtype=torch.uint8)
+    m = data.shape[0]
+    starts = torch.empty(m, dtype=torch.bool, device=data.device)
+    state = torch.empty(m, dtype=torch.int8, device=data.device)
+    if m == 0:
+        return starts, state
+    with torch.cuda.device(data.device):
+        rc = _build.lib().qoi_fsm_starts(
+            data.data_ptr(), starts.data_ptr(), state.data_ptr(),
+            _scratch(1, m, TILE_FSM, False, data.device).data_ptr(), m,
+            int(chunks_len), _build.stream_ptr(data.device))
+    _build.launched("fsm_starts", rc)
+    return starts, state
 
 
 def initial_scan(leaf: torch.Tensor, npix: torch.Tensor):
@@ -160,29 +315,68 @@ def initial_scan(leaf: torch.Tensor, npix: torch.Tensor):
     with torch.cuda.device(dev):
         rc = _build.lib().qoi_initial_scan(
             leaf.data_ptr(), npix.data_ptr(), ps.data_ptr(), inc.data_ptr(),
-            _scratch(1, m, dev).data_ptr(), m, _build.stream_ptr(dev))
+            _scratch(1, m, TILE_LEAVES, True, dev).data_ptr(), m,
+            _build.stream_ptr(dev))
     _build.launched("initial_scan", rc)
     return ps, inc
 
 
+def initial_w_scan(data: torch.Tensor, starts: torch.Tensor,
+                   entry_px32=None):
+    """(M,) uint8 chunk bytes and (M,) bool chunk starts -> (w, pix_off),
+    (M,) int64 each: `decode_v3._initial_w` of the bytes' fields, the
+    leaves built in the kernel. `entry_px32` (0-d int64 u32 on the same
+    device, default the seed) is read on the device."""
+    _check("initial_w_scan", torch.uint8, 1, data)
+    _check("initial_w_scan", torch.bool, 1, starts)
+    if starts.shape != data.shape or starts.device != data.device:
+        raise ValueError("initial_w_scan: data and starts differ in shape "
+                         "or device")
+    if entry_px32 is not None and (
+            entry_px32.dtype != torch.int64 or entry_px32.numel() != 1
+            or entry_px32.device != data.device):
+        raise ValueError("initial_w_scan: entry_px32 must be one int64 "
+                         "on the data's device")
+    if data.device.type == "cpu":
+        return initial_w_scan_plain(data, starts, entry_px32)
+    _build.check_cuda("initial_w_scan", data, dtype=torch.uint8)
+    _build.check_cuda("initial_w_scan", starts, dtype=torch.bool)
+    m = data.shape[0]
+    if m > MAX_BYTES:
+        raise ValueError(f"initial_w_scan: {m} bytes, the kernel takes at "
+                         f"most {MAX_BYTES}")
+    dev = data.device
+    w = torch.empty(m, dtype=torch.int64, device=dev)
+    pix_off = torch.empty(m, dtype=torch.int64, device=dev)
+    if m == 0:
+        return w, pix_off
+    with torch.cuda.device(dev):
+        rc = _build.lib().qoi_initial_w(
+            data.data_ptr(), starts.data_ptr(),
+            None if entry_px32 is None else entry_px32.data_ptr(),
+            w.data_ptr(), pix_off.data_ptr(),
+            _scratch(1, m, TILE_BYTES, False, dev).data_ptr(), m,
+            _build.stream_ptr(dev))
+    _build.launched("initial_w_scan", rc)
+    return w, pix_off
+
+
 def anch_scan(leaf: torch.Tensor) -> torch.Tensor:
     """(R, L) int32 (g, e) leaves -> (R, L) int32, each row's inclusive
-    scan (R <= MAX_ROWS on the card)."""
+    scan."""
     _check("anch_scan", torch.int32, 2, leaf)
     if leaf.device.type == "cpu":
         return anch_scan_plain(leaf)
     _build.check_cuda("anch_scan", leaf)
     rows, length = leaf.shape
-    if rows > MAX_ROWS:
-        raise ValueError(f"anch_scan: {rows} rows, the kernel takes at "
-                         f"most {MAX_ROWS}")
     out = torch.empty_like(leaf)
     if leaf.numel() == 0:
         return out
     with torch.cuda.device(leaf.device):
         rc = _build.lib().qoi_anch_scan(
             leaf.data_ptr(), out.data_ptr(),
-            _scratch(rows, length, leaf.device).data_ptr(), rows, length,
+            _scratch(rows, length, TILE_ANCH, False,
+                     leaf.device).data_ptr(), rows, length,
             _build.stream_ptr(leaf.device))
     _build.launched("anch_scan", rc)
     return out

@@ -5,8 +5,9 @@ A chunk's byte length is a pure function of its first byte (qoi.h:547-575),
 so "is byte i a chunk start?" is a 5-state FSM over the byte stream (state
 = bytes remaining until the next chunk start). Each byte's transition is a
 map {0..4} -> {0..4}, packed base-8 into one integer; maps compose
-associatively, so one scan resolves every state: `fsm_scan`, the CUDA
-kernel of kernels/blocked_scan.py on the card.
+associatively, so one scan resolves every state: `fsm_scan` (the maps)
+and `fsm_starts` (the maps applied to state 0), the CUDA kernel of
+kernels/blocked_scan.py on the card.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 # composes them (kernels/blocked_scan.py); tiled_decode composes the
 # ranks' maps on the host with them
 from ..kernels.blocked_scan import (  # noqa: F401
-    _compose_maps, _pack_map, chunk_byte_len, fsm_scan)
+    _compose_maps, _pack_map, chunk_byte_len, fsm_scan, fsm_starts)
 
 
 def chunk_starts_and_state(data: torch.Tensor, chunks_len):
@@ -27,13 +28,9 @@ def chunk_starts_and_state(data: torch.Tensor, chunks_len):
 
     Returns ((M,) bool starts, (M,) int8 state_before): how many bytes of
     the current chunk still precede position i (0 = i starts a chunk).
-    The streamed decoder ends its tiles at chunk boundaries with it."""
-    after = fsm_scan(data)
-    # state BEFORE byte i = state after byte i-1 (0 before byte 0)
-    state_before = torch.cat([after.new_zeros(1),
-                              (after & 7)[:-1]]).to(torch.int8)
-    io = torch.arange(data.shape[0], device=data.device)
-    return (state_before == 0) & (io < chunks_len), state_before
+    The streamed decoder ends its tiles at chunk boundaries with it. One
+    launch of the `fsm_starts` kernel on the card."""
+    return fsm_starts(data, chunks_len)
 
 
 def chunk_starts(data: torch.Tensor, chunks_len) -> torch.Tensor:

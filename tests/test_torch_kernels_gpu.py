@@ -658,7 +658,10 @@ def test_wrappers_count_launches(dev):
     kns.numeric_scan(z, z, z, torch.zeros((65, 8), dtype=torch.int32,
                                           device=dev))
     kbs.fsm_scan(z[0].view(torch.uint8))
+    kbs.fsm_starts(z[0].view(torch.uint8), 5)
     kbs.initial_scan(z[0], z[1])
+    kbs.initial_w_scan(z[0].view(torch.uint8),
+                       z[1].view(torch.uint8) != 0)
     kbs.anch_scan(z)
     torch.cuda.synchronize()
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
@@ -666,14 +669,16 @@ def test_wrappers_count_launches(dev):
                                "place_words": 1, "encode_stage": 1,
                                "encode_scan": 1, "decode_scan": 1,
                                "numeric_scan": 1, "fsm_scan": 1,
-                               "initial_scan": 1, "anch_scan": 1}
+                               "fsm_starts": 1, "initial_scan": 1,
+                               "initial_w_scan": 1, "anch_scan": 1}
 
 
 # ---- blocked_scan: the decode's three one-pass scans ---------------------
 
-#: ragged lengths around the kernel's tile (4096) and one whose row has
-#: more than 1024 tile aggregates (the aggregate scan's carry)
-SCAN_LENGTHS = [1, 2, 31, 4095, 4096, 4097, 8193, 70001, 4096 * 1025 + 3]
+#: ragged lengths around the kernel's tiles (8192 bytes, 4096 leaves) and
+#: rows of 513 and 1026 tiles, whose look-back windows slide past 32 tiles
+SCAN_LENGTHS = [1, 2, 31, 4095, 4096, 4097, 8191, 8192, 8193, 70001,
+                4096 * 1025 + 3]
 
 
 def _same_scan(got, want):
@@ -709,6 +714,44 @@ def test_initial_scan_kernel_matches_twin(dev, n, bits):
         _same_scan(kbs.initial_scan(a, b), kbs.initial_scan_plain(a, b))
 
 
+def _stream_like_bytes(n, seed):
+    """n bytes of a stream's op mix (RGB and RGBA literals, INDEX, DIFF,
+    LUMA and runs in every position), so that random starts land on every
+    class."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 256, n + 5)
+    b[rng.random(n + 5) < 0.1] = 0xFE
+    b[rng.random(n + 5) < 0.05] = 0xFF
+    return torch.from_numpy(b.astype(np.uint8))
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_fsm_starts_kernel_matches_twin(dev, n):
+    """The starts form against its twin: aligned and one byte off, with
+    chunks_len past, at and inside the bytes."""
+    data = _stream_like_bytes(n, n).to(dev)
+    for x in (data[:n], data[1:n + 1], data[3:n + 3]):
+        for clen in (n + 8, n, n // 2):
+            _same_scan(kbs.fsm_starts(x, clen), kbs.fsm_starts_plain(x, clen))
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("entry", ["seed", "px"])
+def test_initial_w_scan_kernel_matches_twin(dev, n, entry):
+    """The bytes form against its twin: the FSM's own starts and random
+    ones (every op class at every position), bytes and starts each
+    aligned or one off, the seed or a random entry px."""
+    rng = np.random.default_rng(n + 11)
+    data = _stream_like_bytes(n, n + 1).to(dev)
+    e = (None if entry == "seed" else
+         torch.tensor(int(rng.integers(0, 1 << 32)), device=dev))
+    rnd = torch.from_numpy(rng.random(n + 1) < 0.5).to(dev)
+    for x in (data[:n], data[1:n + 1]):
+        for st in (kbs.fsm_starts(x, n)[0], rnd[:n], rnd[1:]):
+            _same_scan(kbs.initial_w_scan(x, st, e),
+                       kbs.initial_w_scan_plain(x, st, e))
+
+
 @pytest.mark.parametrize("rows,length", [
     (1, n) for n in SCAN_LENGTHS] + [(64, 16), (64, 8192), (3, 4097),
                                      (5, 4096 * 3), (64, 1)])
@@ -731,11 +774,16 @@ def test_blocked_scans_at_a_4k_stream(dev):
     pad[: len(raw)] = raw
     data, clen = torch.from_numpy(pad).to(dev), len(s) - 22
     _same_scan((kbs.fsm_scan(data),), (kbs.fsm_scan_plain(data),))
+    _same_scan(kbs.fsm_starts(data, clen), kbs.fsm_starts_plain(data, clen))
     starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
     leaf = decode_v3._initial_leaf(cls, r6, d32, lit32).to(torch.int32)
     npix32 = npix.to(torch.int32)
     _same_scan(kbs.initial_scan(leaf, npix32),
                kbs.initial_scan_plain(leaf, npix32))
+    _same_scan(kbs.initial_w_scan(data, starts),
+               kbs.initial_w_scan_plain(data, starts))
+    _same_scan(kbs.initial_w_scan(data, starts),
+               decode_v3._initial_w(cls, r6, d32, lit32, npix))
     px, *_ = decode_v3._decode_core(data, clen, max_rounds=1)
     a = decode_v3._anch_leaf(cls, r6, d32, px).to(torch.int32)
     _same_scan((kbs.anch_scan(a[None]),), (kbs.anch_scan_plain(a[None]),))
@@ -744,10 +792,44 @@ def test_blocked_scans_at_a_4k_stream(dev):
     _same_scan((kbs.anch_scan(rows),), (kbs.anch_scan_plain(rows),))
 
 
+def test_look_back_stress_at_a_4k_stream(dev):
+    """100 back-to-back launches of each scan at the 4K mixed stream's
+    shapes, each bit-equal to the first and the first to the twin: a race
+    in the look-back would show as a launch that differs."""
+    s = oracle.encode(testimages.mixed(3840, 2160, 4, seed=3),
+                      fmt.StreamDesc(3840, 2160, 4))
+    raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(decode_pipeline.bucket_size_fine(len(raw)), np.uint8)
+    pad[: len(raw)] = raw
+    data, clen = torch.from_numpy(pad).to(dev), len(s) - 22
+    starts, cls, r6, d32, lit32, npix = decode_v3._fields(data, clen)
+    leaf = decode_v3._initial_leaf(cls, r6, d32, lit32).to(torch.int32)
+    npix32 = npix.to(torch.int32)
+    a = (npix32 * 5 + leaf) & 127
+    cases = [
+        (lambda: (kbs.fsm_scan(data),), lambda: (kbs.fsm_scan_plain(data),)),
+        (lambda: kbs.fsm_starts(data, clen),
+         lambda: kbs.fsm_starts_plain(data, clen)),
+        (lambda: kbs.initial_scan(leaf, npix32),
+         lambda: kbs.initial_scan_plain(leaf, npix32)),
+        (lambda: kbs.initial_w_scan(data, starts),
+         lambda: kbs.initial_w_scan_plain(data, starts)),
+        (lambda: (kbs.anch_scan(a[None]),),
+         lambda: (kbs.anch_scan_plain(a[None]),))]
+    for kern, plain in cases:
+        first = kern()
+        _same_scan(first, plain())
+        runs = [kern() for _ in range(100)]
+        torch.cuda.synchronize()
+        for got in runs:
+            assert all(torch.equal(g, f) for g, f in zip(got, first))
+
+
 def test_decode_device_launches_each_scan(dev):
     """A 4K mixed stream's decode takes two rounds: `_decode_device` runs
-    the FSM and initial scans once and the anchored scan in round 2, over
-    the surgical round's rows or, with surgical=False, the stream."""
+    the starts and the bytes-form initial scan once each (neither maps
+    form) and the anchored scan in round 2, over the surgical round's
+    rows or, with surgical=False, the stream."""
     s = oracle.encode(testimages.mixed(3840, 2160, 4, seed=3),
                       fmt.StreamDesc(3840, 2160, 4))
     raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
@@ -761,8 +843,10 @@ def test_decode_device_launches_each_scan(dev):
                                                      surgical=surgical)
         torch.cuda.synchronize()
         assert conv and rounds >= 2
-        assert _build.launches["fsm_scan"] == 1
-        assert _build.launches["initial_scan"] == 1
+        assert _build.launches["fsm_starts"] == 1
+        assert _build.launches["initial_w_scan"] == 1
+        assert _build.launches["fsm_scan"] == 0
+        assert _build.launches["initial_scan"] == 0
         assert _build.launches["anch_scan"] >= 1
 
 

@@ -342,7 +342,8 @@ def test_launch_counts_start_at_zero_and_reset():
                                     "slide_val2", "place_words",
                                     "encode_stage", "encode_scan",
                                     "decode_scan", "numeric_scan",
-                                    "fsm_scan", "initial_scan", "anch_scan"}
+                                    "fsm_scan", "fsm_starts", "initial_scan",
+                                    "initial_w_scan", "anch_scan"}
     assert all(v == 0 for v in _build.launches.values())
 
 
