@@ -6,8 +6,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the fourteen kernels against its plain PyTorch
+in parallel), holds each of the fifteen kernels against its plain PyTorch
 twin (results must be exactly equal): the six parallel ones, the
+word-form staging of the encode main path (encode_stage_words, at the 4K
+mixed frame's bucket with the seed carry and with carries in and out,
+and at the 4K RGB photo), the
 numeric re-scan and the decode's one-pass scans in their five forms
 (fsm_scan, the FSM's maps; fsm_starts, its starts and states;
 initial_scan, _initial_w's maps and sums from leaves; initial_w_scan,
@@ -105,17 +108,20 @@ just before it and read just after:
      (qoi_tpu_torch.abperf) on 2 streams, `decode --only "v3 scanapply"`
      (decode_v3._decode_device(apply="scan"): numeric_scan must launch
      there) and `decode --only "abl initial_w"`, and on 2 frames
-     `encode --only wordsum20480`, each variant verified before it is
-     timed;
+     `encode --only wordsum20480,plainstage20480` (the main path's
+     encode with the staging kernel, and with the staging in plain
+     torch), each variant verified before it is timed;
 
 and fails unless every kernel of a path was launched in that path's run.
 Earlier lines report the card (name and power limit from nvidia-smi), each
 phase's wall seconds, the build, each kernel's time beside its twin's, its
 bound and its share of it and, for the placement, the time of one PyTorch
 index_add_ computing the same words;
-the per-phase times of one frame of each side path and of the main
-decode (one photo and one mixed stream, every step of _decode_core, the
-surgical round beside a full second round, and the expand); the
+the per-phase times of one frame of the encode main path (its staging
+and compaction on the kernel route and on the plain one), of each side
+path and of the main decode (one photo and one mixed stream, every step
+of _decode_core, the surgical round beside a full second round, and the
+expand); the
 rates, per-tile times and peak device memory of the streamed path; and
 the user surfaces' rates beside the facade loop's on the same frames,
 the CLI subprocess's wall seconds and the corpus summary; for path 8 the
@@ -640,6 +646,45 @@ def main() -> int:
     del planes, idx, vals
     phase_done("place_words vs twin and index_add_")
 
+    # SW: the word-form staging, as encode_device_wordsum calls it on a 4K
+    # frame in its 2^23-pixel bucket (the seed carry in, contains_last not
+    # given), on the mixed RGBA and the RGB photo frame; and on the mixed
+    # frame with carries in and out: a pending run, a table whose unwritten
+    # entries are garbage, not the last tile
+    rng = np.random.default_rng(15)
+    carry_kw = dict(
+        run_in=37, contains_last=False,
+        table_in=(torch.from_numpy(rng.integers(0, 1 << 32, 64)).to(dev),
+                  torch.from_numpy(rng.random(64) < 0.5).to(dev)))
+    errs = []
+    for label, frame, desc, kw in (("mixed RGBA", mixed[0], desc4, {}),
+                                   ("photo RGB", photo_rgb, desc3, {}),
+                                   ("mixed RGBA, carries", mixed[0], desc4,
+                                    carry_kw)):
+        px4 = px4_of(frame, desc)
+        if kw:
+            kw = dict(kw, prev_in=px4[5].clone())
+        got = kstage.encode_stage_words(px4, n, **kw)
+        want = kstage.encode_stage_words_plain(px4, n, **kw)
+        errs += [compare(f"encode_stage_words {label} [{i}]", g, w_)
+                 for i, (g, w_) in enumerate(zip(
+                     (got.lo, got.hi, got.lens, *got.carry),
+                     (want.lo, want.hi, want.lens, *want.carry)))]
+        log(f"encode_stage_words {label}: N={npc} n_valid={n}, lo, hi, "
+            "lens and the carry out equal to the twin's")
+        del got, want
+    px4 = px4_of(mixed[0], desc4)
+    # per pixel 4 B read, 12 B written (lo, hi, lens); ~80 integer
+    # operations, as the fused staging's
+    row("encode_stage_words", "encode_stage.cu",
+        "qoi_tpu/ops/scans.py:102 via qoi_tpu/ops/scans.py:181 and "
+        "qoi_tpu/ops/table.py:216", max(errs),
+        cuda_ms(lambda: kstage.encode_stage_words(px4, n), 20),
+        cuda_ms(lambda: kstage.encode_stage_words_plain(px4, n), 3),
+        16 * npc, 80 * npc)
+    del px4
+    phase_done("encode_stage_words vs twin")
+
     # S: fused staging of a 4K mixed RGBA frame and a 4K RGB photo frame
     for label, frame, desc in (("mixed RGBA", mixed[0], desc4),
                                ("photo RGB", photo_rgb, desc3)):
@@ -805,6 +850,17 @@ def main() -> int:
     # ---- per-phase times of one frame of each new path ----------------
     px4 = px4_of(mixed[1], desc4)
     for _ in range(2):       # the second pass is the one reported
+        # the encode main path, encode_device_wordsum: its staging on the
+        # kernel route, then on the plain one (int64 fields, as before the
+        # kernel), each with the word-sum compaction of its fields
+        ch, t_sk = sync_ms(lambda: pipeline.encode_stage_chunks(px4, n))
+        _, t_ck = sync_ms(lambda: compact.compact_words6_wordsum(
+            ch.lo, ch.hi, ch.lens, npc * 6, seg=20480))
+        ch, t_sp = sync_ms(lambda: pipeline.stage_chunks_plain(px4, n))
+        _, t_cp = sync_ms(lambda: compact.compact_words6_wordsum(
+            ch.lo, ch.hi, ch.lens, npc * 6, seg=20480))
+        del ch
+        _, t_wd = sync_ms(lambda: pipeline.encode_device_wordsum(px4, n))
         ch, t_st = sync_ms(lambda: pipeline.encode_stage_chunks(
             px4, n, form="bytes"))
         dense, t_de = sync_ms(lambda: kpack.densify_records(ch.staging,
@@ -816,6 +872,10 @@ def main() -> int:
             st[0].T.contiguous(), st[1][:, 0]))
         _, t_pl2 = sync_ms(lambda: kpack.place_records(*dense, npc * 6))
         del st, dense
+    log(f"phases, encode main path 1x4K mixed (ms): staging {t_sk:.3f}, "
+        f"compaction {t_ck:.3f} (kernel route); staging {t_sp:.3f}, "
+        f"compaction {t_cp:.3f} (plain route); encode_device_wordsum in "
+        f"one bracket {t_wd:.3f}")
     log(f"phases, pack encode 1x4K mixed (ms): stage_chunks(bytes) "
         f"{t_st:.3f}, densify {t_de:.3f}, prep+place {t_pl:.3f}")
     log(f"phases, fused staging -> pack 1x4K mixed (ms): encode_stage "
@@ -1295,16 +1355,16 @@ def main() -> int:
         log(f"bench.main 1 --synthetic small --nopng --onlytotals --json "
             f"--device cuda: rc 0, {ms:.3f} ms")
 
-    counted("main-path", ("slide_val", "expand_px", "block_maps",
-                          "fsm_starts", "initial_w_scan", "anch_scan"),
-            main_path)
+    counted("main-path", ("encode_stage_words", "slide_val", "expand_px",
+                          "block_maps", "fsm_starts", "initial_w_scan",
+                          "anch_scan"), main_path)
     counted("pack-encode", ("place_words",), pack_path)
     counted("staging", ("encode_stage", "place_words"), staging_path)
     counted("dense-decode", ("slide_val2", "block_maps", "expand_px",
                              "fsm_starts", "initial_w_scan"), dense_path)
-    counted("streamed", ("slide_val", "block_maps", "expand_px",
-                         "decode_scan", "encode_scan", "fsm_starts",
-                         "initial_w_scan"), streamed_path)
+    counted("streamed", ("encode_stage_words", "slide_val", "block_maps",
+                         "expand_px", "decode_scan", "encode_scan",
+                         "fsm_starts", "initial_w_scan"), streamed_path)
     def cross_check_path():
         cc_peaks = []
 
@@ -1432,8 +1492,9 @@ def main() -> int:
             "to the oracle's pixels")
         return max(cc_peaks)
 
-    counted("user-surfaces", ("slide_val", "block_maps", "expand_px",
-                              "encode_scan", "decode_scan"), surfaces_path)
+    counted("user-surfaces", ("encode_stage_words", "slide_val",
+                              "block_maps", "expand_px", "encode_scan",
+                              "decode_scan"), surfaces_path)
     tmp_ctx.cleanup()
     counted("cross-check engines", ("numeric_scan", "block_maps",
                                     "decode_scan", "initial_scan"),
@@ -1497,8 +1558,8 @@ def main() -> int:
         return max(x["peak_gib"] for x in res), launches
 
     try:
-        counted("sequence-parallel", ("slide_val", "fsm_scan"),
-                seq_parallel_path)
+        counted("sequence-parallel", ("encode_stage_words", "slide_val",
+                                      "fsm_scan"), seq_parallel_path)
     finally:
         seq_pool.close()
         seq_ctx.cleanup()
@@ -1650,9 +1711,10 @@ def main() -> int:
             f"by family {fuzz_counts}")
         log(f"conformance path: {time.perf_counter() - t_path:.1f} s wall")
 
-    counted("conformance", ("slide_val", "slide_val2", "expand_px",
-                            "block_maps", "place_words", "encode_stage",
-                            "decode_scan", "encode_scan"), conformance_path)
+    counted("conformance", ("encode_stage_words", "slide_val", "slide_val2",
+                            "expand_px", "block_maps", "place_words",
+                            "encode_stage", "decode_scan", "encode_scan"),
+            conformance_path)
 
     def measurement_path():
         from qoi_tpu_torch import abperf, headline
@@ -1689,7 +1751,8 @@ def main() -> int:
                 (["decode", "--streams", "2", "--reps", "2", "--only",
                   "abl initial_w"], ["abl initial_w"]),
                 (["encode", "--frames", "2", "--reps", "2", "--only",
-                  "wordsum20480"], ["wordsum20480"])):
+                  "wordsum20480,plainstage20480"],
+                 ["wordsum20480", "plainstage20480"])):
             k0 = _build.launches["numeric_scan"]
             rc, lines = run(abperf.main, argv)
             check(rc == 0 and [x.split(":")[0] for x in lines] == names
@@ -1706,8 +1769,9 @@ def main() -> int:
                     f"apply=\"scan\"): {k1 - k0}")
         log(f"measurement path: {time.perf_counter() - t_path:.1f} s wall")
 
-    counted("measurement", ("numeric_scan", "slide_val", "block_maps",
-                            "expand_px"), measurement_path)
+    counted("measurement", ("encode_stage_words", "numeric_scan",
+                            "slide_val", "block_maps", "expand_px"),
+            measurement_path)
     log(f"launches over the ten counted runs: {counts_total}")
     for name in kernels:
         check(counts_total[name] > 0, f"kernel {name} never launched")

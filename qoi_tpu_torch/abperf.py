@@ -27,7 +27,10 @@ Subcommands and variants (`--only a,b` runs the variants whose names
 contain one of the substrings):
 - encode, --frames `testimages.mixed` 4K frames: `wordsum10240`,
   `wordsum20480`, `wordsum40960` (`pipeline.encode_device_wordsum` at that
-  many pixels a compaction row), `pack` (`encode_device_pack`),
+  many pixels a compaction row: the staging kernel, then the
+  compaction), `plainstage20480` (the same with the staging
+  in plain torch, `pipeline.stage_chunks_plain`), `pack`
+  (`encode_device_pack`),
   `batch` (`models/batch.encode_batch`) and `facade` (the
   `qoi_tpu_torch.encode` loop); the last two include the host's upload
   and fetch;
@@ -68,6 +71,7 @@ from . import format as fmt
 from . import oracle
 from ._bits import to_i32
 from .models import decode_pipeline, decode_v3, pipeline
+from .ops import compact
 from .utils import testimages
 
 W, H = 3840, 2160
@@ -195,10 +199,17 @@ def cmd_encode(h: Harness, opts) -> None:
         for i, s in enumerate(outs):
             _need(s == want[i], f"frame {i}: not the oracle's bytes")
 
+    def plain_staged(x):
+        ch = pipeline.stage_chunks_plain(x, n)
+        return compact.compact_words6_wordsum(ch.lo, ch.hi, ch.lens,
+                                              x.shape[0] * 6, seg=20480)
+
     for seg in (10240, 20480, 40960):
         h.run(f"wordsum{seg}",
               lambda seg=seg: [pipeline.encode_device_wordsum(x, n, seg=seg)
                                for x in xs], device_streams, npx)
+    h.run("plainstage20480",
+          lambda: [plain_staged(x) for x in xs], device_streams, npx)
     h.run("pack", lambda: [pipeline.encode_device_pack(x, n) for x in xs],
           device_streams, npx)
     h.run("batch", lambda: batch.encode_batch(frames, device=h.dev),

@@ -1,11 +1,23 @@
-// Fused encode staging: kernel S of the PyTorch/CUDA port.
+// Encode staging: kernel S of the PyTorch/CUDA port, in two forms that
+// share one templated kernel.
 //
-// Replaces the Pallas kernel qoi_tpu/kernels/encode_stage.py::
-// encode_stage_pallas (_kernel): encoder stages 1-4 in one pass, px4 (N, 4)
-// uint8 -> staging (N, 6) uint8 with bytes at or past len zeroed, and lens
-// (N, 1) int32. Blocks are 1024 pixels, as the JAX kernel's default block.
-// A thread block of 256 threads takes one of them as 32 rows of 32 pixels:
-// warp w holds rows 4w .. 4w + 3, lane l pixel l of each row.
+// Bytes form, qoi_encode_stage. Replaces the Pallas kernel
+// qoi_tpu/kernels/encode_stage.py::encode_stage_pallas (_kernel): encoder
+// stages 1-4 in one pass, px4 (N, 4) uint8 -> staging (N, 6) uint8 with
+// bytes at or past len zeroed, and lens (N, 1) int32.
+//
+// Words form, qoi_encode_stage_words. Replaces, on the encode main path,
+// qoi_tpu/models/pipeline.py::encode_stage_chunks(form="words") with its
+// tile carries: stages 1-4 whose two TPU-shaped scans are
+// qoi_tpu/ops/scans.py:102 blocked_scan -- the cummax of run segmentation
+// (run_segmentation :181 <- last_true_index :169 <- cummax :37) and
+// table_hit_carry's overwrite scan (qoi_tpu/ops/table.py:216). px4 (N, 4)
+// uint8, any N >= 1 -> lo, hi, lens (N,) int32 (u32 bit patterns: record
+// bytes 0..3, bytes 4..5, the length) and the outgoing carry.
+//
+// Blocks are 1024 pixels, as the JAX kernel's default block. A thread
+// block of 256 threads takes one of them as 32 rows of 32 pixels: warp w
+// holds rows 4w .. 4w + 3, lane l pixel l of each row.
 //
 // The TPU kernel runs its grid in order and carries the previous pixel, the
 // run phase and the 64-slot colour table from one block to the next in
@@ -25,31 +37,49 @@
 //      set bit below the lane, else the highest row below and the highest
 //      lane of that row: no scan is needed.
 //   2. Groups of 3 lanes, one a column, publish the block's aggregate as a
-//      status word (final or pass, value) at once: final when the block
-//      wrote the column, or in block 0 (an unwritten slot reads as the zero
-//      pixel, which makes the `before == packed` hit test of
-//      encode_stage.py:149-154 exact), else "pass". Then each group looks
+//      status word (final or pass, a written bit, value) at once: final
+//      when the block wrote the column, or in block 0 (its inclusive prefix
+//      over the virtual block below), else "pass". Then each group looks
 //      back over its predecessors 3 at a time: the nearest final word is
 //      the carry; pass words are skipped and a word not yet published (0)
 //      is waited for. A pass column then publishes its carry as final, so
 //      only columns that nobody writes walk far. The slot columns carry
 //      pixels, so no load depends on the look-back.
-//   3. Each pixel, from shared memory: the run phase entering the block
-//      follows from the last literal before it, and is cut to 0 at every
-//      block start after the one holding last_pos, as the TPU kernel cuts
-//      its run carry (encode_stage.py:216). Padding (index >= n_valid) is
-//      forced to eq, and the pending-run flush tests prev_run_pos % 62,
-//      both as in the TPU kernel. The op tests run on the four channel
-//      differences at once (byte-wise SIMD), the staged bytes are one
-//      64-bit word masked to the length, two pixels' 12 bytes go to shared
-//      memory as three words, and the block's 6 KB leave as 16-byte stores.
-// The wrapper zeroes the ticket and the status words for every launch.
+//   3. Each pixel, from shared memory, against the last literal before the
+//      block (a virtual one where a run is in flight: run_pos = i - that
+//      index). Padding (index >= n_valid) is forced to eq, and the
+//      pending-run flush tests prev_run_pos % 62, both as in the TPU
+//      kernel. The op tests run on the four channel differences at once
+//      (byte-wise SIMD) and the staged record is one 64-bit word masked to
+//      the length. The bytes form puts two pixels' 12 bytes in shared
+//      memory as three words and the block's 6 KB leave as 16-byte stores;
+//      the words form stores each pixel's lo, hi and length (4-byte
+//      stores, lanes on neighbouring words).
+// Before block 0 stands a virtual block whose words are final: in the
+// bytes form every slot 0 (an unwritten slot reads as the zero pixel,
+// which makes the `before == packed` hit test of encode_stage.py:149-154
+// exact) and no literal; in the words form the incoming carry -- a slot
+// is table_in where written_in is set and 0 elsewhere (table.py:205-209),
+// with written_in as its written bit, and the last literal is the index
+// -1 - run_in, so that a leading run continues the pending one and
+// position 0 flushes it. The previous pixel of position 0 is the seed,
+// or prev_in. The bytes form then cuts the run to 0 at every block start
+// after the one holding last_pos, as the TPU kernel cuts its run carry
+// (encode_stage.py:216); the words form does not. In the words form the
+// last block writes the outgoing carry from its inclusive prefix: the
+// table and its written bits (an RGBA (0, 0, 0, 0) literal writes slot 0
+// with the value 0, so "written" rides in the status word and is never
+// read off the value), the pending run mod 62 (0 when contains_last is
+// given true) and the last valid pixel. Positions past N (the ragged last
+// block) load nothing and store nothing.
+// The C entries zero the ticket and the status words before each launch.
 //
-// Bound on the H100: memory traffic, 4 B/px read and 10 B/px written (about
-// 117 MB, ~0.035 ms at a 4K frame of 2^23 pixels). This design reads the
-// pixels once and adds 65 status words (8 B) a block: zeroed by the
-// wrapper, written at most twice and read by the look-back (~1.5 B/px in
-// all, a tenth of the bound's bytes). What it has to hide is
+// Bound on the H100: memory traffic. Bytes form: 4 B/px read and 10 B/px
+// written (about 117 MB, ~0.035 ms at a 4K frame of 2^23 pixels). Words
+// form: 4 B/px read and 12 B/px written (132.7 MB, ~0.040 ms at 8,294,400
+// pixels). The design reads the pixels once and adds 65 status words (8 B)
+// a block: zeroed, written at most twice and read by the look-back (~1.5
+// B/px in all, a tenth of the bound's bytes). What it has to hide is
 // latency: each block waits for its ticket, its pixels and its look-back
 // in turn, so small blocks (eight resident an SM at 32 registers) with
 // four loads a thread in flight keep enough of them going. The rest of its
@@ -62,6 +92,7 @@ namespace {
 
 constexpr int kBlock = 1024;           // pixels per block
 constexpr int kThreads = 256;          // threads per block
+constexpr int kBlocksPerSm = 8;        // resident: 32 registers a thread
 constexpr int kRows = kBlock / 32;     // rows of 32 pixels
 constexpr int kRowsPerWarp = kRows / (kThreads / 32);
 constexpr int kSlots = 64;
@@ -71,6 +102,21 @@ constexpr int kGroupsPerWarp = 32 / kGroup;
 constexpr int kRunCap = 62;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kSeed = 0xFF000000u;  // (0, 0, 0, 255) packed r|g|b|a
+constexpr unsigned kPass = 1u, kFinal = 2u;
+
+// the words form's carry in: a header of five values -- n_valid, the
+// carry's pixel count, run_in, prev_in packed, contains_last (0 no; 1
+// yes; 2 not given: the last pixel is here, yet the run goes out in the
+// carry, as the JAX function leaves it) -- each a launch argument or, where
+// bit k of from_dev is set, word k of carry_in on the card; then, where bit
+// kInTable is set, table_in[64] and written_in[64] in carry_in (else an
+// empty table)
+constexpr int kInValid = 0, kInCount = 1, kInRun = 2, kInPrev = 3,
+              kInLast = 4, kHeader = 5, kInTable = 5,
+              kInWritten = 5 + kSlots;
+// its carry out: prev_px packed, run, table[64] (64-bit), written[64]
+// (bytes)
+constexpr int kOutPrev = 0, kOutRun = 1, kOutTable = 2;
 
 // (r * 3 + g * 5 + b * 7 + a * 11) % 64, one byte-wise dot product
 __device__ __forceinline__ int hash_px(uint32_t p) {
@@ -79,69 +125,122 @@ __device__ __forceinline__ int hash_px(uint32_t p) {
 
 __device__ __forceinline__ int top_bit(unsigned m) { return 31 - __clz(m); }
 
-// status word: (final ? 2 : 1) << 32 | value; 0 until published
-__device__ __forceinline__ void publish(unsigned long long* w, bool is_final,
-                                        uint32_t value) {
-  *reinterpret_cast<volatile unsigned long long*>(w) =
-      (unsigned long long)(is_final ? 2u : 1u) << 32 | value;
+// status word: tag (pass 1, final 2) in bits 32-33, the written bit in
+// bit 34, the value in bits 0-31; 0 until published
+__device__ __forceinline__ unsigned long long status_word(unsigned tag,
+                                                          bool written,
+                                                          uint32_t value) {
+  return (unsigned long long)(tag | (written ? 4u : 0u)) << 32 | value;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* w,
+                                        unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(w) = v;
 }
 
 // The carry of column `col` into block blk > 0, by one group of kGroup
-// lanes starting at lane g0 (lane g0 + i reads block hi - i): the value of
-// the nearest final word; pass words are skipped, a word still 0 is waited
-// for. Before block 0 every column is final with `none`.
-__device__ uint32_t look_back(const unsigned long long* status, int blk,
-                              int col, uint32_t none, int g0) {
+// lanes starting at lane g0 (lane g0 + i reads block hi - i): the nearest
+// final word; pass words are skipped, a word still 0 is waited for. Before
+// block 0 stands `none`, the virtual block's final word.
+__device__ unsigned long long look_back(const unsigned long long* status,
+                                        int blk, int col,
+                                        unsigned long long none, int g0) {
   const int i = (threadIdx.x & 31) - g0;
   const unsigned gmask = ((1u << kGroup) - 1u) << g0;
   int hi = blk - 1;
   while (true) {
     const int j = hi - i;
-    bool ready = true, is_final = true;
-    uint32_t value = none;
-    if (j >= 0) {
-      const unsigned long long w = *reinterpret_cast<const volatile
-          unsigned long long*>(status + (size_t)j * kCols + col);
-      const unsigned tag = (unsigned)(w >> 32);
-      ready = tag != 0u;
-      is_final = tag == 2u;
-      value = (uint32_t)w;
-    }
-    const unsigned stop = __ballot_sync(gmask, !ready || is_final) & gmask;
+    unsigned long long w = none;
+    if (j >= 0)
+      w = *reinterpret_cast<const volatile unsigned long long*>(
+          status + (size_t)j * kCols + col);
+    const unsigned tag = (unsigned)(w >> 32) & 3u;
+    const unsigned stop = __ballot_sync(gmask, tag != kPass) & gmask;
     if (stop == 0) {
       hi -= kGroup;
       continue;
     }
     const int first = __ffs(stop) - 1;
-    if (__shfl_sync(gmask, (int)ready, first))
-      return __shfl_sync(gmask, value, first);
+    if (__shfl_sync(gmask, (int)(tag != 0u), first))
+      return __shfl_sync(gmask, w, first);
     __nanosleep(64);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-encode_stage_kernel(const uint32_t* __restrict__ px,
-                    uint8_t* __restrict__ stag, int32_t* __restrict__ lens,
-                    unsigned long long* __restrict__ scratch, int n_valid,
-                    int last_pos) {
+struct StageArgs {
+  const uint32_t* px;              // (n,) packed pixels
+  int n;
+  unsigned long long* scratch;     // the ticket, then 65 words a block
+  int32_t* lens;                   // (n,)
+  // bytes form
+  int n_valid, last_pos;
+  uint8_t* stag;                   // (n, 6)
+  // words form
+  int hdr[kHeader];                // the carry in's header (kIn*)
+  unsigned from_dev;               // ... its fields read from carry_in
+  const int32_t* carry_in;
+  uint32_t* lo;                    // (n,)
+  uint32_t* hi;                    // (n,)
+  long long* carry_out;            // kOut*
+  uint8_t* written_out;            // (64,)
+};
+
+// field k of the words form's carry-in header
+__device__ __forceinline__ int header(const StageArgs& a, int k) {
+  return (a.from_dev >> k) & 1u ? a.carry_in[k] : a.hdr[k];
+}
+
+template <bool kWords>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+stage_kernel(StageArgs a) {
   __shared__ uint32_t spx[kBlock];
   __shared__ __align__(16) unsigned lmask[kRows][kSlots];  // its writers
   __shared__ unsigned wmask[kSlots];         // per slot: the rows that wrote it
   __shared__ unsigned lrow[kRows];           // per row: its literals
   __shared__ unsigned litmask;               // the rows that hold a literal
+  __shared__ unsigned long long none[kCols]; // the virtual block's words
   __shared__ uint32_t inval[kSlots];         // the table entering the block
   __shared__ int lit_in;                     // the last literal before it
   __shared__ uint32_t prev0;                 // the pixel before the block
-  __shared__ __align__(16) uint32_t sst[kBlock * 6 / 4];
+  __shared__ int nv_s, last_s;               // n_valid, last_pos
+  __shared__ uint32_t seed_s;                // the pixel before pixel 0
+  __shared__ __align__(16) uint32_t sst[kWords ? 4 : kBlock * 6 / 4];
   __shared__ int blk_s;
-  unsigned long long* ticket = scratch;
-  unsigned long long* status = scratch + 1;
+  unsigned long long* ticket = a.scratch;
+  unsigned long long* status = a.scratch + 1;
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
   const unsigned below_lane = (1u << lane) - 1u;
+  const int n = a.n;
 
   if (t == 0) {
     blk_s = (int)atomicAdd(ticket, 1ull);
     litmask = 0u;
+    if constexpr (kWords) {
+      const int nv = min(max(header(a, kInValid), 0), n);
+      nv_s = nv;
+      last_s = header(a, kInLast) ? nv - 1 : -1;
+      seed_s = (uint32_t)header(a, kInPrev);
+    } else {
+      nv_s = a.n_valid;
+      last_s = a.last_pos;
+      seed_s = kSeed;
+    }
+  }
+  if (t < kCols) {
+    unsigned long long w;
+    if constexpr (kWords) {
+      if (t < kSlots) {
+        const bool wr = (a.from_dev >> kInTable) & 1u &&
+                        a.carry_in[kInWritten + t] != 0;
+        w = status_word(kFinal, wr, wr ? (uint32_t)a.carry_in[kInTable + t]
+                                       : 0u);
+      } else {
+        w = status_word(kFinal, false, (uint32_t)(-1 - header(a, kInRun)));
+      }
+    } else {
+      w = status_word(kFinal, false, t < kSlots ? 0u : 0xFFFFFFFFu);
+    }
+    none[t] = w;
   }
   if (t < kSlots) wmask[t] = 0u;
   for (int i = t; i < kRows * kSlots / 4; i += kThreads)
@@ -149,16 +248,20 @@ encode_stage_kernel(const uint32_t* __restrict__ px,
   __syncthreads();
   const int blk = blk_s;
   const int base = blk * kBlock;
+  const int n_valid = nv_s, last_pos = last_s;
 
   // -- 1. the pixels, once; literals and slot writers of each row
   uint32_t p[kRowsPerWarp];
 #pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k)
-    p[k] = px[base + (wid * kRowsPerWarp + k) * 32 + lane];
+  for (int k = 0; k < kRowsPerWarp; ++k) {
+    const int gid = base + (wid * kRowsPerWarp + k) * 32 + lane;
+    p[k] = gid < n ? a.px[gid] : 0u;
+  }
   uint32_t before_row = 0u;
-  if (lane == 0)
-    before_row = wid ? px[base + wid * kRowsPerWarp * 32 - 1]
-                     : (base ? px[base - 1] : kSeed);
+  if (lane == 0) {
+    const int j = base + wid * kRowsPerWarp * 32 - 1;
+    before_row = j < 0 ? seed_s : (j < n ? a.px[j] : 0u);
+  }
   if (t == 0) prev0 = before_row;
 #pragma unroll
   for (int k = 0; k < kRowsPerWarp; ++k) {
@@ -187,8 +290,7 @@ encode_stage_kernel(const uint32_t* __restrict__ px,
   if (g < kGroupsPerWarp && col < kCols) {
     const int g0 = g * kGroup;
     const unsigned m = col < kSlots ? wmask[col] : litmask;
-    const uint32_t none = col < kSlots ? 0u : 0xFFFFFFFFu;
-    uint32_t agg = none;
+    uint32_t agg = 0u;
     if (m) {
       const int r = top_bit(m);
       agg = col < kSlots ? spx[r * 32 + top_bit(lmask[r][col])]
@@ -196,31 +298,62 @@ encode_stage_kernel(const uint32_t* __restrict__ px,
     }
     unsigned long long* mine = status + (size_t)blk * kCols + col;
     const bool lead = lane == g0;
-    if (lead) publish(mine, m || blk == 0, agg);
-    uint32_t in = none;
-    if (blk) {
-      in = look_back(status, blk, col, none, g0);
-      if (lead && !m) publish(mine, true, in);
+    const unsigned long long own = status_word(kFinal, true, agg);
+    unsigned long long in = none[col];
+    if (blk == 0) {
+      if (lead) publish(mine, m ? own : in);
+    } else {
+      if (lead) publish(mine, m ? own : status_word(kPass, false, 0u));
+      in = look_back(status, blk, col, none[col], g0);
+      if (lead && !m) publish(mine, in);
     }
     if (lead) {
-      if (col < kSlots) inval[col] = in;
-      else lit_in = (int)in;
+      if (col < kSlots) inval[col] = (uint32_t)in;
+      else lit_in = (int)(uint32_t)in;
+    }
+    if constexpr (kWords) {
+      if (lead && blk == (int)gridDim.x - 1) {
+        // the outgoing carry: this block's inclusive prefix
+        const unsigned long long inc = m ? own : in;
+        if (col < kSlots) {
+          a.carry_out[kOutTable + col] = (uint32_t)inc;
+          a.written_out[col] = (uint8_t)((inc >> 34) & 1ull);
+        } else {
+          // the pixel count of the carry (n_valid, or the JAX package's
+          // count when n_valid is not given), and the run since the last
+          // literal mod 62, as Python's % takes a negative trail
+          const int cn = min(max(header(a, kInCount), 0), n);
+          const int trail = cn - 1 - (int)(uint32_t)inc;
+          a.carry_out[kOutRun] =
+              header(a, kInLast) == 1
+                  ? 0 : ((trail % kRunCap) + kRunCap) % kRunCap;
+          a.carry_out[kOutPrev] = cn > 0 ? a.px[cn - 1] : seed_s;
+        }
+      }
     }
   }
   __syncthreads();
 
-  // -- 3. each pixel, from shared memory
-  int run_in = 0;
-  if (blk > 0) {
-    // the TPU kernel zeroes its run carry after a block whose valid region
-    // reaches past last_pos; otherwise the carry is the run since the last
-    // literal (or the stream start), mod 62
-    const int lim = min(max(n_valid, base - kBlock), base);
-    if (!(last_pos < lim)) {
-      const int e = min(n_valid, base);
-      const int l = lit_in;
-      run_in = (l >= 0 ? e - 1 - l : e) % kRunCap;
+  // -- 3. each pixel, from shared memory, against the last literal before
+  // the block: the words form's carry (virtual before the tile, -1 -
+  // run_in); the bytes form's run carry as a virtual literal, cut to 0
+  // after a block whose valid region reaches past last_pos, as the TPU
+  // kernel cuts it; otherwise the run since the last literal (or the
+  // stream start), mod 62
+  int lit_before;
+  if constexpr (kWords) {
+    lit_before = lit_in;
+  } else {
+    int run_in = 0;
+    if (blk > 0) {
+      const int lim = min(max(n_valid, base - kBlock), base);
+      if (!(last_pos < lim)) {
+        const int e = min(n_valid, base);
+        const int l = lit_in;
+        run_in = (l >= 0 ? e - 1 - l : e) % kRunCap;
+      }
     }
+    lit_before = base - 1 - run_in;
   }
 #pragma unroll
   for (int k = 0; k < kRowsPerWarp; ++k) {
@@ -236,28 +369,20 @@ encode_stage_kernel(const uint32_t* __restrict__ px,
     const unsigned lits = lrow[r];
     const unsigned rl = litmask & ((1u << r) - 1u);  // earlier rows
     const int rlit = rl ? base + top_bit(rl) * 32 + top_bit(lrow[top_bit(rl)])
-                        : -1;
+                        : lit_before;
     const unsigned le = lits & ((2u << lane) - 1u), lt = lits & below_lane;
     const int ln = le ? gid - lane + top_bit(le) : rlit;  // last literal <= i
     const int lp = lt ? gid - lane + top_bit(lt) : rlit;  // last literal < i
-    const int run_pos = ln >= 0 ? gid - ln : i + 1 + run_in;
-    bool prev_eq;
-    int prev_run_pos;
-    if (i == 0) {
-      prev_eq = run_in > 0;
-      prev_run_pos = run_in;
-    } else {
-      prev_eq = lp != gid - 1;
-      prev_run_pos = lp >= 0 ? gid - 1 - lp : i + run_in;
-    }
+    const int run_pos = gid - ln;
+    const bool prev_eq = lp != gid - 1;
+    const int prev_run_pos = gid - 1 - lp;
     // run bytes: (run_pos - 1) % 62 for an eq pixel (run_pos >= 1), a
     // multiple of 62 iff that is 61; the same for the flushed run
     const int run_m = (run_pos - 1) % kRunCap;
     const int prev_m = (prev_run_pos - 1) % kRunCap;
     const bool emits_run =
         eq && valid && (run_m == kRunCap - 1 || gid == last_pos);
-    const bool flush =
-        !eq && prev_eq && prev_run_pos > 0 && prev_m != kRunCap - 1;
+    const bool flush = !eq && prev_eq && prev_m != kRunCap - 1;
 
     // -- colour-table replay (qoi.h:430-436): the last earlier writer of
     // the slot in this row, else in the earlier rows, else before the block
@@ -317,35 +442,89 @@ encode_stage_kernel(const uint32_t* __restrict__ px,
     }
     st &= (1ull << (8 * len)) - 1ull;
     const uint32_t lo = (uint32_t)st, hi = (uint32_t)(st >> 32);
-    lens[gid] = len;
 
-    // pixels 2m and 2m + 1 fill words 3m .. 3m + 2 of the block's staging
-    const uint32_t lo_next = __shfl_down_sync(kFull, lo, 1);
-    const int w0 = 3 * (i >> 1);
-    if (!(lane & 1)) {
-      sst[w0] = lo;
-      sst[w0 + 1] = hi | lo_next << 16;
+    if constexpr (kWords) {
+      if (gid < n) {
+        a.lo[gid] = lo;
+        a.hi[gid] = hi;
+        a.lens[gid] = len;
+      }
     } else {
-      sst[w0 + 2] = lo >> 16 | hi << 16;
+      a.lens[gid] = len;
+      // pixels 2m and 2m + 1 fill words 3m .. 3m + 2 of the block's staging
+      const uint32_t lo_next = __shfl_down_sync(kFull, lo, 1);
+      const int w0 = 3 * (i >> 1);
+      if (!(lane & 1)) {
+        sst[w0] = lo;
+        sst[w0 + 1] = hi | lo_next << 16;
+      } else {
+        sst[w0 + 2] = lo >> 16 | hi << 16;
+      }
     }
   }
-  __syncthreads();
-  for (int q = t; q < kBlock * 6 / 16; q += kThreads)
-    reinterpret_cast<int4*>(stag + (size_t)base * 6)[q] =
-        reinterpret_cast<const int4*>(sst)[q];
+  if constexpr (!kWords) {
+    __syncthreads();
+    for (int q = t; q < kBlock * 6 / 16; q += kThreads)
+      reinterpret_cast<int4*>(a.stag + (size_t)base * 6)[q] =
+          reinterpret_cast<const int4*>(sst)[q];
+  }
+}
+
+// Zero the ticket and the status words (scratch: 1 + 65 * blocks 64-bit
+// words), then launch one block a 1024 pixels.
+template <bool kWords>
+int launch(StageArgs a, void* stream) {
+  const int blocks = (a.n + kBlock - 1) / kBlock;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = cudaMemsetAsync(
+      a.scratch, 0, (1 + (size_t)kCols * blocks) * 8, st);
+  if (e != cudaSuccess) return (int)e;
+  stage_kernel<kWords><<<blocks, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: (1 + 65 * N / 1024) 64-bit words, zeroed by the wrapper: the
-// ticket, then the status words.
+// N a multiple of 1024; n_valid <= N.
 extern "C" int qoi_encode_stage(const void* px4, void* stag, void* lens,
                                 void* scratch, int n, int n_valid,
                                 int last_pos, void* stream) {
   if (n <= 0) return 0;
   if (n % kBlock) return (int)cudaErrorInvalidValue;
-  encode_stage_kernel<<<n / kBlock, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)px4, (uint8_t*)stag, (int32_t*)lens,
-      (unsigned long long*)scratch, n_valid, last_pos);
-  return (int)cudaGetLastError();
+  StageArgs a{};
+  a.px = (const uint32_t*)px4;
+  a.n = n;
+  a.scratch = (unsigned long long*)scratch;
+  a.lens = (int32_t*)lens;
+  a.n_valid = n_valid;
+  a.last_pos = last_pos;
+  a.stag = (uint8_t*)stag;
+  return launch<false>(a, stream);
+}
+
+// Any N >= 1. The carry in (kIn* above): the header n_valid .. last as
+// arguments, the fields marked in from_dev and the table read from
+// carry_in (133 int32 on the card; null when from_dev is 0); carry_out: 66
+// 64-bit words, written_out: 64 bytes (kOut* above); lo, hi, lens: (N,)
+// 32-bit.
+extern "C" int qoi_encode_stage_words(
+    const void* px4, int n, int n_valid, int count, int run_in, int prev_in,
+    int last, unsigned from_dev, const void* carry_in, void* lo, void* hi,
+    void* lens, void* carry_out, void* written_out, void* scratch,
+    void* stream) {
+  if (n <= 0 || (from_dev && !carry_in)) return (int)cudaErrorInvalidValue;
+  StageArgs a{};
+  a.px = (const uint32_t*)px4;
+  a.n = n;
+  a.scratch = (unsigned long long*)scratch;
+  a.lens = (int32_t*)lens;
+  const int hdr[kHeader] = {n_valid, count, run_in, prev_in, last};
+  for (int k = 0; k < kHeader; ++k) a.hdr[k] = hdr[k];
+  a.from_dev = from_dev;
+  a.carry_in = (const int32_t*)carry_in;
+  a.lo = (uint32_t*)lo;
+  a.hi = (uint32_t*)hi;
+  a.carry_out = (long long*)carry_out;
+  a.written_out = (uint8_t*)written_out;
+  return launch<true>(a, stream);
 }

@@ -45,6 +45,8 @@ _SIGNATURES = {
                         ctypes.c_longlong, _P],
     "qoi_encode_stage": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, _P],
+    "qoi_encode_stage_words": [_P, *[ctypes.c_int] * 6, ctypes.c_uint,
+                               *[_P] * 8],
     "qoi_decode_scan": [_P, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_longlong, _P, _P, _P, _P],
     "qoi_encode_scan": [_P, ctypes.c_longlong, _P, _P, _P],
@@ -63,6 +65,7 @@ _SIGNATURES = {
 launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "block_maps": 0, "slide_val2": 0,
                             "place_words": 0, "encode_stage": 0,
+                            "encode_stage_words": 0,
                             "encode_scan": 0, "decode_scan": 0,
                             "numeric_scan": 0, "fsm_scan": 0,
                             "fsm_starts": 0, "initial_scan": 0,

@@ -17,7 +17,9 @@ byte-plane staging `form="bytes"`) and the two-tier sort
 `compact.compact_bytes6` (`encode_device_split`, whose table runs in
 two phases).
 
-u32 values are int64 in [0, 2**32) (see _bits).
+u32 values are int64 in [0, 2**32) (see _bits), except the word-form
+staging's on the card: the staging kernel (kernels/encode_stage,
+`csrc/encode_stage.cu`) returns lo, hi and lens as int32 bit patterns.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from .. import format as fmt
 from .._bits import M32, swar_add, swar_sub
+from ..kernels import encode_stage as kstage
 from ..kernels import pack as kpack
 from ..ops import compact, scans, table
 from .decode_pipeline import bucket_size
@@ -64,11 +67,16 @@ def carry_to_numpy(carry: EncoderCarry) -> Tuple[np.ndarray, ...]:
 
 
 class EncodedWords(NamedTuple):
-    """Per-pixel chunk records in packed word form."""
+    """Per-pixel chunk records in packed word form. lo, hi and lens are
+    int32 bit patterns from the staging kernel (CUDA tensors) and int64
+    from the plain code: every reader widens them with `_bits.u32`."""
 
-    lo: torch.Tensor    # (N,) int64 u32 stream bytes 0..3, little-endian
-    hi: torch.Tensor    # (N,) int64 u32 stream bytes 4..5 in the low 16 bits
-    lens: torch.Tensor  # (N,) int64 emitted byte count (0 for run members)
+    lo: torch.Tensor    # (N,) int32 or int64 u32 values: stream bytes 0..3,
+                        # little-endian
+    hi: torch.Tensor    # (N,) int32 or int64 u32 values: stream bytes 4..5
+                        # in the low 16 bits
+    lens: torch.Tensor  # (N,) int32 or int64 u32 values: emitted byte
+                        # count (0 for run members)
     carry: EncoderCarry
 
 
@@ -113,7 +121,44 @@ def encode_stage_chunks(
     Port only, for the fused staging kernel's twin (kernels/encode_stage):
     last_pos overrides the final pixel's index, and run_resets (N,) bool
     cuts the pending run before the marked positions
-    (`scans.run_segmentation`)."""
+    (`scans.run_segmentation`).
+
+    On a CUDA tensor form="words" is one launch of the staging kernel,
+    `kernels/encode_stage.encode_stage_words` (the main path, the
+    streamed encode's tiles and the sequence-parallel encode's phase B).
+    form="bytes", table_local=, last_pos= and run_resets= keep the plain
+    code on every device: they serve `encode_device_split`, the pack
+    encode and the fused staging's twin."""
+    if (form == "words" and px4.device.type == "cuda"
+            and table_local is None and last_pos is None
+            and run_resets is None):
+        return kstage.encode_stage_words(
+            px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
+            contains_last=contains_last)
+    return stage_chunks_plain(
+        px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
+        contains_last=contains_last, table_local=table_local,
+        table_block=table_block, form=form, last_pos=last_pos,
+        run_resets=run_resets)
+
+
+def stage_chunks_plain(
+    px4: torch.Tensor,
+    n_valid=None,
+    *,
+    prev_in: Optional[torch.Tensor] = None,
+    run_in=None,
+    table_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    contains_last=None,
+    table_local=None,
+    table_block: int = table._BLOCK,
+    form: str = "words",
+    last_pos=None,
+    run_resets: Optional[torch.Tensor] = None,
+):
+    """`encode_stage_chunks` in plain torch on any device (its CPU route,
+    and the words form's twin, `kernels/encode_stage.
+    encode_stage_words_plain`), its lo, hi and lens int64."""
     n = px4.shape[0]
     dev = px4.device
     io = torch.arange(n, device=dev)

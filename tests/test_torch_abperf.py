@@ -21,8 +21,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 GATES = ["--mini", "--device", "cpu", "--check-only"]
 
 VARIANTS = {
-    "encode": ["wordsum10240", "wordsum20480", "wordsum40960", "pack",
-               "batch", "facade"],
+    "encode": ["wordsum10240", "wordsum20480", "wordsum40960",
+               "plainstage20480", "pack", "batch", "facade"],
     "decode": ["v3 surgical", "v3 nosurg", "v3 r1", "v3 scanapply",
                "v3 dense", "v1"] + [f"abl {p}" for p in abperf.ABL_PHASES],
     "expand": ["expand 4k per-byte", "expand 4k dense", "expand synthetic"],

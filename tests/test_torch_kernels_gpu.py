@@ -642,6 +642,142 @@ def test_pack_encode_on_card_matches_oracle(dev, ch):
             assert got == want, name
 
 
+# ---- encode_stage_words: the encode main path's staging -----------------
+
+def _words_same(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip((got.lo, got.hi, got.lens, *got.carry),
+                    (want.lo, want.hi, want.lens, *want.carry)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def _on(dev, x):
+    if isinstance(x, tuple):
+        return tuple(_on(dev, y) for y in x)
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def _words_case(dev, px4, n_valid=None, **kw):
+    """The kernel with the carry as given (host tensors are copied to
+    the card by its wrapper), against the twin with it on the card."""
+    got = kstage.encode_stage_words(px4, n_valid, **kw)
+    _words_same(got, kstage.encode_stage_words_plain(
+        px4, _on(dev, n_valid), **{k: _on(dev, v) for k, v in kw.items()}))
+    return got
+
+
+@pytest.fixture(scope="module")
+def frames_4k():
+    """(N, 4) uint8 of three 4K frames padded to the facade's bucket,
+    and the pixel count: RGBA mixed, RGB photo, one colour."""
+    n = 3840 * 2160
+    return {k: _px4(img, decode_pipeline.bucket_size(n))[0]
+            for k, img in (("mixed", testimages.mixed(3840, 2160, 4, seed=3)),
+                           ("photo_rgb", testimages.photo(3840, 2160, 3,
+                                                          seed=3)),
+                           ("one_colour", testimages.flat(3840, 2160, 4)))}, n
+
+
+@pytest.mark.parametrize("kind", ["mixed", "photo_rgb", "one_colour"])
+def test_encode_stage_words_matches_twin_4k(dev, frames_4k, kind):
+    """The main path's shape: a 4K frame in its 2^23-pixel bucket, the
+    seed carry in, the carry out (contains_last not given)."""
+    frames, n = frames_4k
+    _words_case(dev, frames[kind].to(dev), n)
+
+
+@pytest.mark.parametrize("n,n_valid", [(256, 256), (1000, 1000),
+                                       (1024, 1024), (1025, 1025),
+                                       (1025, 700), (4097, 4000),
+                                       (1100 * 1024 + 3, 1100 * 1024)])
+def test_encode_stage_words_ragged(dev, n, n_valid):
+    """Any N: one block, a ragged last block, n_valid below N; 1101
+    blocks, whose look-back walks far."""
+    img = testimages.mixed(1100, 1025, 4, seed=n % 7)
+    px4, _ = _px4(img, 1100 * 1025)
+    _words_case(dev, px4[:n].to(dev), n_valid)
+
+
+@pytest.mark.parametrize("run_in", [0, 1, 61])
+@pytest.mark.parametrize("last", [False, True, None])
+def test_encode_stage_words_carries(dev, run_in, last):
+    """A carry in with a table whose unwritten entries are garbage, as
+    Python values and as tensors on the card, and the carry out."""
+    rng = np.random.default_rng(run_in)
+    tbl = torch.from_numpy(rng.integers(0, 1 << 32, 64, dtype=np.int64))
+    wr = torch.from_numpy(rng.random(64) < 0.5)
+    img = testimages.mixed(130, 100, 4, seed=run_in)
+    px4, n = _px4(img, 16384)
+    px4[:300] = torch.tensor([12, 200, 7, 255], dtype=torch.uint8)
+    px4[:40] = 0
+    px4 = px4.to(dev)
+    prev = torch.tensor([12, 200, 7, 255], dtype=torch.uint8)
+    for on_card in (False, True):
+        to = (lambda x: x.to(dev)) if on_card else (lambda x: x)
+        kw = dict(prev_in=to(prev), table_in=(to(tbl), to(wr)),
+                  run_in=torch.tensor(run_in, device=dev) if on_card
+                  else run_in,
+                  contains_last=last)
+        _words_case(dev, px4, n, **kw)
+        _words_case(dev, px4, torch.tensor(n - 77, device=dev), **kw)
+    _words_case(dev, px4, None, contains_last=last)
+
+
+def test_encode_stage_words_offset_view(dev):
+    """An input view 4 bytes off its buffer's start."""
+    px4, n = _px4(testimages.mixed(200, 120, 4, seed=2), 24577)
+    view = px4.to(dev)[1:]
+    assert view.data_ptr() % 16 == 4
+    _words_case(dev, view, n - 1, run_in=5, contains_last=False)
+
+
+def test_encode_stage_words_back_to_back_4k(dev, frames_4k):
+    """100 launches queued back to back at 4K, each bit-equal to the
+    first and the first to the twin: a race in the look-back would show
+    as a launch that differs."""
+    frames, n = frames_4k
+    px4 = frames["mixed"].to(dev)
+    first = _words_case(dev, px4, n, contains_last=False)
+    runs = [kstage.encode_stage_words(px4, n, contains_last=False)
+            for _ in range(100)]
+    torch.cuda.synchronize()
+    want = (first.lo, first.hi, first.lens, *first.carry)
+    for got in runs:
+        assert all(torch.equal(g, w) for g, w in
+                   zip((got.lo, got.hi, got.lens, *got.carry), want))
+
+
+def test_main_path_encodes_through_the_words_kernel(dev):
+    """The facade at 4K and the streamed 8K encode: the oracle's bytes,
+    one staging launch a frame or tile and no plain staging."""
+    for w, h in ((3840, 2160), (7680, 4320)):
+        img = testimages.mixed(w, h, 4, seed=5)
+        want = oracle.encode(img, fmt.StreamDesc(w, h, 4))
+        _build.reset_launches()
+        assert qoi_tpu_torch.encode(img, device=dev) == want
+        assert _build.launches["encode_stage_words"] == (
+            1 if w * h <= qoi_tpu_torch.STREAM_THRESHOLD_PX
+            else -(-w * h // (1 << 22)))
+
+
+def test_encode_tiled_launches_the_words_kernel(dev):
+    """encode_tiled over S = 4 gloo ranks sharing the card: the oracle's
+    bytes on every rank, each rank's phase B one staging launch."""
+    from qoi_tpu_torch.parallel.launch import RankPool
+
+    import torch_parallel_tasks as tasks
+
+    img = testimages.mixed(1920, 1080, 4, seed=3)
+    stream = oracle.encode(img, fmt.StreamDesc(1920, 1080, 4))
+    _build.build()
+    with RankPool(4, device="cuda", timeout_s=600) as pool:
+        res = pool.run(tasks.roundtrip_on_card, img, stream)
+    for r, (same_stream, same_px, conv, launches, _) in enumerate(res):
+        assert same_stream and same_px and conv, f"rank {r}"
+        assert launches["encode_stage_words"] == 1, f"rank {r}: {launches}"
+
+
 def test_wrappers_count_launches(dev):
     _build.reset_launches()
     z = torch.zeros((2, 8), dtype=torch.int32, device=dev)
@@ -652,6 +788,8 @@ def test_wrappers_count_launches(dev):
     kpack.place_words(z[0], z[0], z[0], 4)
     kstage.encode_stage_pallas(
         torch.zeros((1024, 4), dtype=torch.uint8, device=dev), 7)
+    kstage.encode_stage_words(
+        torch.zeros((300, 4), dtype=torch.uint8, device=dev), 7)
     kscan.encode_scan(z[0])
     kscan.decode_scan(z[0].view(torch.uint8), 4, 4,
                       torch.zeros(65, dtype=torch.int32, device=dev))
@@ -667,6 +805,7 @@ def test_wrappers_count_launches(dev):
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
                                "block_maps": 1, "slide_val2": 1,
                                "place_words": 1, "encode_stage": 1,
+                               "encode_stage_words": 1,
                                "encode_scan": 1, "decode_scan": 1,
                                "numeric_scan": 1, "fsm_scan": 1,
                                "fsm_starts": 1, "initial_scan": 1,

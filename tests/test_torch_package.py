@@ -281,8 +281,9 @@ def test_make_mesh_checks_the_world_size(one_rank_group):
 
 @pytest.mark.parametrize("kernel", ["slide", "expand", "block_maps",
                                     "slide_val2", "place_words",
-                                    "encode_stage", "encode_scan",
-                                    "decode_scan", "numeric_scan"])
+                                    "encode_stage", "encode_stage_words",
+                                    "encode_scan", "decode_scan",
+                                    "numeric_scan"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises: here
     a 'meta' tensor must raise instead of taking the plain twin."""
@@ -307,6 +308,9 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
         elif kernel == "numeric_scan":
             tns.numeric_scan(z, z, z, torch.zeros((65, 8), dtype=torch.int32,
                                                   device="meta"))
+        elif kernel == "encode_stage_words":
+            tstage.encode_stage_words(
+                torch.zeros((1000, 4), dtype=torch.uint8, device="meta"), 9)
         else:
             tstage.encode_stage_pallas(
                 torch.zeros((1024, 4), dtype=torch.uint8, device="meta"), 9)
@@ -340,8 +344,9 @@ def test_launch_counts_start_at_zero_and_reset():
     _build.reset_launches()
     assert set(_build.launches) == {"slide_val", "expand_px", "block_maps",
                                     "slide_val2", "place_words",
-                                    "encode_stage", "encode_scan",
-                                    "decode_scan", "numeric_scan",
+                                    "encode_stage", "encode_stage_words",
+                                    "encode_scan", "decode_scan",
+                                    "numeric_scan",
                                     "fsm_scan", "fsm_starts", "initial_scan",
                                     "initial_w_scan", "anch_scan"}
     assert all(v == 0 for v in _build.launches.values())

@@ -1,7 +1,8 @@
 """The sequence-parallel codec on the card: a 4K frame encoded and decoded
 by S = 4 gloo ranks that share cuda:0 (a machine with one card), against
-the C++ oracle, with the slide_val kernel launched by every rank; and the
-byte-plane word-sum compaction on the card against its CPU result.
+the C++ oracle, with the staging and slide_val kernels launched by every
+rank; and the byte-plane word-sum compaction on the card against its CPU
+result.
 
 These tests need a CUDA device and skip without one. Run them on the GPU
 machine (which need not have jax) with:
@@ -49,6 +50,7 @@ def test_tiled_4k_on_card(dev, kind):
         assert same_stream and same_px, f"rank {r}"
         assert conv, f"rank {r}: the sharded fixpoint did not converge"
         assert launches["slide_val"] > 0, f"rank {r}: {launches}"
+        assert launches["encode_stage_words"] > 0, f"rank {r}: {launches}"
 
 
 @pytest.mark.parametrize("n,kind", [(4096 * 3, "mixed"), (4096 * 2 + 100,
