@@ -6,11 +6,14 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the fifteen kernels against its plain PyTorch
-twin (results must be exactly equal): the six parallel ones, the
+in parallel), holds each of the seventeen kernels against its plain
+PyTorch twin (results must be exactly equal): the six parallel ones, the
 word-form staging of the encode main path (encode_stage_words, at the 4K
 mixed frame's bucket with the seed carry and with carries in and out,
-and at the 4K RGB photo), the
+and at the 4K RGB photo), the pack encode's byte-plane staging
+(encode_stage_planes, at the same inputs), v2's reset-or-add scan
+(resolve_scan, at the 4K photo and mixed streams' leaves and at a
+ragged length), the
 numeric re-scan and the decode's one-pass scans in their five forms
 (fsm_scan, the FSM's maps; fsm_starts, its starts and states;
 initial_scan, _initial_w's maps and sums from leaves; initial_w_scan,
@@ -37,7 +40,8 @@ just before it and read just after:
      never-written slot), which must fail the device fixpoint and match
      the oracle through the native ladder;
   2. the pack encode: pipeline.encode_device_pack on the same 4 + 1
-     frames, byte-identical to the oracle;
+     frames, byte-identical to the oracle (its staging the
+     encode_stage_planes kernel);
   3. the fused staging: encode_stage.encode_stage_pallas, packed by
      pack.compact_bytes6_pack, on one mixed frame, byte-identical;
   4. the dense decode: decode_v3._decode_device(dense=True) on the 4
@@ -65,7 +69,8 @@ just before it and read just after:
      stream, its iterations, and capped at one iteration (it then falls
      to decode_scan); the v2 decoder (decode_v2.decode) on the photo and
      mixed streams, its rounds (a stream that does not converge in 12
-     goes to v1); decode_v3._resolve_p with apply="scan" (block_maps,
+     goes to v1; each round's scan the resolve_scan kernel);
+     decode_v3._resolve_p with apply="scan" (block_maps,
      compose, the numeric_scan kernel) against apply="vector" on the
      mixed stream's round 1, px and exit state equal, its initial w from
      the fields (_initial_w: initial_scan on the leaves) against
@@ -684,6 +689,86 @@ def main() -> int:
         16 * npc, 80 * npc)
     del px4
     phase_done("encode_stage_words vs twin")
+
+    # SP: the byte-plane staging, as the pack encode's program A calls it
+    # on a 4K frame in its bucket (the seed carry in), on the mixed RGBA
+    # and the RGB photo frame, and on the mixed frame with the carries in
+    # and out above
+    errs = []
+    for label, frame, desc, kw in (("mixed RGBA", mixed[0], desc4, {}),
+                                   ("photo RGB", photo_rgb, desc3, {}),
+                                   ("mixed RGBA, carries", mixed[0], desc4,
+                                    carry_kw)):
+        px4 = px4_of(frame, desc)
+        if kw:
+            kw = dict(kw, prev_in=px4[5].clone())
+        got = kstage.encode_stage_planes(px4, n, **kw)
+        want = kstage.encode_stage_planes_plain(px4, n, **kw)
+        errs += [compare(f"encode_stage_planes {label} [{i}]", g, w_)
+                 for i, (g, w_) in enumerate(zip(
+                     (got.staging, got.lens, *got.carry),
+                     (want.staging, want.lens, *want.carry)))]
+        log(f"encode_stage_planes {label}: N={npc} n_valid={n}, the (6, "
+            "N) planes, lens and the carry out equal to the twin's")
+        del got, want
+    px4 = px4_of(mixed[0], desc4)
+    # per pixel 4 B read, 10 B written (six plane bytes, lens); ~80
+    # integer operations, as the other staging forms'
+    row("encode_stage_planes", "encode_stage.cu",
+        "qoi_tpu/ops/scans.py:102 via qoi_tpu/ops/scans.py:181 and "
+        "qoi_tpu/ops/table.py:216, form=\"bytes\" "
+        "(qoi_tpu/models/pipeline.py:209)", max(errs),
+        cuda_ms(lambda: kstage.encode_stage_planes(px4, n), 20),
+        cuda_ms(lambda: kstage.encode_stage_planes_plain(px4, n), 3),
+        14 * npc, 80 * npc)
+    del px4
+    phase_done("encode_stage_planes vs twin")
+
+    # R: v2's reset-or-add scan on the 4K photo and mixed streams'
+    # round-0 leaves, padded as decode_v2.decode pads them, and on a
+    # ragged prefix of each
+    errs, leaves = [], {}
+    for label, stream in (("photo", photo_streams[0]),
+                          ("mixed", mixed_streams[0])):
+        raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
+        pad = np.zeros(decode_pipeline.bucket_size(len(raw)), np.uint8)
+        pad[: len(raw)] = raw
+        flags, lit, deltas, _, _ = decode_v2._fields(
+            torch.from_numpy(pad).to(dev), len(raw) - fmt.TRAILER_SIZE)
+        f = decode_v2._unpack_flags(flags)
+        leaves[label] = decode_v2._resolve_leaves(
+            f, lit, deltas, torch.zeros_like(lit),
+            torch.zeros_like(f["starts"]))
+        del flags, lit, deltas, f
+        mr = len(raw) - 12345
+        for lab, (rf, vl) in ((label, leaves[label]),
+                              (f"{label}, ragged M = {mr}",
+                               tuple(x[:, :mr].contiguous()
+                                     for x in leaves[label]))):
+            errs.append(compare(f"resolve_scan {lab}",
+                                kbs.resolve_scan(rf, vl),
+                                kbs.resolve_scan_plain(rf, vl)))
+            log(f"resolve_scan {lab}: (4, {rf.shape[1]}) equal to the twin")
+    # per position 8 B read, 4 B written; ~12 integer operations (the
+    # combine and the transposes)
+    for label in ("mixed", "photo"):     # the row: the photo stream
+        rf, vl = leaves.pop(label)
+        mv = rf.shape[1]
+        ms_k = cuda_ms(lambda: kbs.resolve_scan(rf, vl), 20)
+        ms_p = cuda_ms(lambda: kbs.resolve_scan_plain(rf, vl), 3)
+        if label == "mixed":
+            bms, by = bound(12 * mv, 12 * mv)
+            log(f"resolve_scan at the 4K mixed stream's (4, {mv}): "
+                f"{ms_k:.4f} ms vs plain {ms_p:.4f} ms; bound {bms:.4f} "
+                f"ms ({by}), {100 * bms / ms_k:.1f}% of it")
+        else:
+            log(f"resolve_scan at the 4K photo stream's (4, {mv})")
+            row("resolve_scan", "blocked_scan.cu",
+                "qoi_tpu/ops/scans.py:102 via "
+                "qoi_tpu/models/decode_v2.py:146", max(errs), ms_k, ms_p,
+                12 * mv, 12 * mv)
+        del rf, vl
+    phase_done("resolve_scan vs twin")
 
     # S: fused staging of a 4K mixed RGBA frame and a 4K RGB photo frame
     for label, frame, desc in (("mixed RGBA", mixed[0], desc4),
@@ -1358,7 +1443,8 @@ def main() -> int:
     counted("main-path", ("encode_stage_words", "slide_val", "expand_px",
                           "block_maps", "fsm_starts", "initial_w_scan",
                           "anch_scan"), main_path)
-    counted("pack-encode", ("place_words",), pack_path)
+    counted("pack-encode", ("encode_stage_planes", "place_words"),
+            pack_path)
     counted("staging", ("encode_stage", "place_words"), staging_path)
     counted("dense-decode", ("slide_val2", "block_maps", "expand_px",
                              "fsm_starts", "initial_w_scan"), dense_path)
@@ -1497,7 +1583,8 @@ def main() -> int:
                               "decode_scan"), surfaces_path)
     tmp_ctx.cleanup()
     counted("cross-check engines", ("numeric_scan", "block_maps",
-                                    "decode_scan", "initial_scan"),
+                                    "decode_scan", "initial_scan",
+                                    "resolve_scan"),
             cross_check_path)
 
     def seq_parallel_path():

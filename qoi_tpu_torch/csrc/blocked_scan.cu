@@ -1,9 +1,9 @@
-// Inclusive scans of the decoder's three associative combines, one pass
-// with a decoupled look-back: kernel of the PyTorch/CUDA port.
+// Inclusive scans of the decoders' associative combines, one pass with a
+// decoupled look-back: kernel of the PyTorch/CUDA port.
 //
 // Replaces qoi_tpu/ops/scans.py::blocked_scan (its lax.scan over
 // position-in-block, :142) for the three combines the decode main path
-// scans with it, in five entries:
+// scans with it and v2's, in six entries:
 //   qoi_fsm_scan      the chunk-start FSM (qoi_tpu/ops/fsm.py:82,
 //                     _compose_maps): base-8 packed 5-state maps from the
 //                     (M,) uint8 bytes; every inclusive map written (int32);
@@ -21,7 +21,17 @@
 //                     int64, as _initial_w returns them;
 //   qoi_anch_scan     _anch_comb, the anchored rebuild's 7-bit (g, e) leaf
 //                     (decode_v3.py:238 over the stream, :266 over the
-//                     surgical round's rows), each of R rows on its own.
+//                     surgical round's rows), each of R rows on its own;
+//   qoi_resolve_scan  v2's per-channel reset-or-add combine
+//                     (qoi_tpu/models/decode_v2.py:146, _resolve_scan
+//                     :107-147): rflag and val, (4, M) uint8 channel-major,
+//                     -> the (4, M) uint8 px after every byte with the seed
+//                     epilogue of :147. A position's state is its four
+//                     channels' value bytes and reset bytes (0xFF where
+//                     set), combined byte-wise: a SWAR add without carries
+//                     between bytes, selected by the later reset mask;
+//                     a thread's 16 positions come in as four 16-byte
+//                     rows of each input, transposed 4x4 bytes at a time.
 // The maps are integers, so any grouping of an associative combine gives
 // the same bits as JAX's scan. Element 0's map is its leaf unchanged and
 // no identity of a combine is assumed (_initial_comb has none for
@@ -63,18 +73,25 @@
 //      16-byte store instruction fills whole 32-byte sectors. A ragged
 //      last tile (or a row that starts off 16 bytes) stores element by
 //      element.
+// The resolve scan stages its eight input rows in 64.3 KB of dynamic
+// shared memory and reads them again for the apply (fewer registers live
+// across the look-back); its status word is flag << 62 | the four reset
+// bits << 32 | the four value bytes.
 // Tiles of 512 threads: 32 bytes a thread for the FSM and 16 leaves for
 // anch (few, long tiles: the look-back costs a tile one to a few round
 // trips to L2 while the block waits), 16 bytes for the bytes form and 8
-// leaves for the leaf form (their registers); 57-64 registers, no spills,
-// 16.3-32.3 KB of shared memory, two blocks an SM.
+// leaves for the leaf form (their registers), 16 positions for the
+// resolve scan; 57-64 registers, no spills (the resolve scan: 20 bytes),
+// 16.3-32.3 KB of shared memory (the resolve scan 64.3 KB), two blocks an
+// SM.
 //
 // Bound on the H100: bytes. Each input read once, each output written
 // once; at the 4K mixed stream's M = 14,680,064 and 3.35 TB/s: fsm_scan
 // 5 B an element (0.022 ms), fsm_starts 3 B (0.013), initial_scan 20 B
-// (0.088), initial_w 18 B (0.079), anch_scan 8 B (0.035). The folds are
-// 20-60 integer operations an element, so at 64 integer lanes an SM the
-// FSM and bytes forms are bound by issue nearly as much as by bytes.
+// (0.088), initial_w 18 B (0.079), anch_scan 8 B (0.035); resolve_scan
+// 12 B a byte of the stream (8 read, 4 written). The folds are 20-60
+// integer operations an element, so at 64 integer lanes an SM the FSM and
+// bytes forms are bound by issue nearly as much as by bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,7 +102,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Kind { kFsmMaps = 0, kFsmStarts = 1, kInitLeaf = 2, kInitBytes = 3,
-            kAnch = 4 };
+            kAnch = 4, kResolve = 5 };
 
 // status word flags: 0 not yet published
 constexpr unsigned kAgg = 1u, kInc = 2u;
@@ -98,15 +115,17 @@ constexpr uint32_t kSeedHash = (11u * 255u) & 63u;
 constexpr uint32_t kSeedAlpha = 255u;
 // the 40-bit npix sum of the bytes form's status word
 constexpr unsigned long long kSum40 = (1ull << 40) - 1ull;
+// the seed px (0, 0, 0, 255) packed r | g << 8 | b << 16 | a << 24
+constexpr uint32_t kSeedPx = 0xFF000000u;
 
 template <int K>
 struct Geo {
   static constexpr bool bytes = K == kFsmMaps || K == kFsmStarts ||
-                                K == kInitBytes;
+                                K == kInitBytes || K == kResolve;
   static constexpr bool sum = K == kInitLeaf || K == kInitBytes;
   // elements a thread: 32 FSM bytes and 16 anch leaves (fewer tiles, and
   // so fewer look-backs, for the light folds); 16 bytes for the bytes
-  // form, 8 initial leaves with their npix
+  // form and the resolve scan, 8 initial leaves with their npix
   static constexpr int items = K == kInitLeaf ? 8
                                : (K == kFsmMaps || K == kFsmStarts) ? 32
                                                                     : 16;
@@ -115,15 +134,19 @@ struct Geo {
   // staged 16-byte chunks of an input: the tile's, and two for the halo
   // and the shift of an unaligned input
   static constexpr int chunks = kThreads * items * esz / 16 + 2;
-  static constexpr int inputs = sum ? 2 : 1;
+  // input rows: the resolve scan's four channels of rflag and of val
+  static constexpr int inputs = K == kResolve ? 8 : sum ? 2 : 1;
   // the staging area, reused as 64 chunks a warp for the stores
   static constexpr int smem = inputs * chunks > kWarps * 64
                                   ? inputs * chunks : kWarps * 64;
+  // past 48 KB it is dynamic shared memory
+  static constexpr bool dyn = smem * 16 > 48 * 1024;
 };
 
 struct V {
   uint32_t p;
-  unsigned long long s;   // the npix sum (initial forms only)
+  unsigned long long s;   // the npix sum (initial forms), the reset bytes
+                          // (resolve)
 };
 
 struct Args {
@@ -166,13 +189,45 @@ __device__ __forceinline__ uint32_t anch_comb(uint32_t p1, uint32_t p2) {
   return (p1 & g2) | (((g2 * (p1 >> 1) + (p2 >> 1)) & 63u) << 1);
 }
 
+// v2's reset-or-add on four channels at once: where the later reset byte
+// m2 is set its value, else the sum mod 256
+__device__ __forceinline__ uint32_t resolve_comb(uint32_t v1, uint32_t v2,
+                                                 uint32_t m2) {
+  return (v2 & m2) | (__vadd4(v1, v2) & ~m2);
+}
+
+// the reset bytes (each 0 or 0xFF) as four bits, and back
+__device__ __forceinline__ uint32_t mask_bits(uint32_t m) {
+  return ((m & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t mask_bytes(uint32_t b) {
+  return ((b * 0x00204081u) & 0x01010101u) * 0xFFu;
+}
+
+// the 4x4 byte transpose: o[k] byte c = x[c] byte k (its own inverse)
+__device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
+                                           uint32_t x2, uint32_t x3,
+                                           uint32_t* o) {
+  const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
+  const uint32_t t1 = __byte_perm(x2, x3, 0x5140);
+  const uint32_t t2 = __byte_perm(x0, x1, 0x7362);
+  const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
 template <int K>
 __device__ __forceinline__ V comb(const V& a, const V& b) {
   V r;
   if constexpr (K == kFsmMaps || K == kFsmStarts) r.p = fsm_comb(a.p, b.p);
   else if constexpr (K == kAnch) r.p = anch_comb(a.p, b.p);
+  else if constexpr (K == kResolve)
+    r.p = resolve_comb(a.p, b.p, static_cast<uint32_t>(b.s));
   else r.p = initial_comb(a.p, b.p);
-  r.s = Geo<K>::sum ? a.s + b.s : 0ull;
+  r.s = Geo<K>::sum ? a.s + b.s : K == kResolve ? (a.s | b.s) : 0ull;
   return r;
 }
 
@@ -180,6 +235,8 @@ template <int K>
 __device__ __forceinline__ V shfl_up(const V& v, int d) {
   V r{__shfl_up_sync(kFull, v.p, d), 0ull};
   if constexpr (Geo<K>::sum) r.s = __shfl_up_sync(kFull, v.s, d);
+  if constexpr (K == kResolve)
+    r.s = __shfl_up_sync(kFull, static_cast<uint32_t>(v.s), d);
   return r;
 }
 
@@ -187,6 +244,8 @@ template <int K>
 __device__ __forceinline__ V shfl_down(const V& v, int d) {
   V r{__shfl_down_sync(kFull, v.p, d), 0ull};
   if constexpr (Geo<K>::sum) r.s = __shfl_down_sync(kFull, v.s, d);
+  if constexpr (K == kResolve)
+    r.s = __shfl_down_sync(kFull, static_cast<uint32_t>(v.s), d);
   return r;
 }
 
@@ -194,6 +253,8 @@ template <int K>
 __device__ __forceinline__ V shfl_idx(const V& v, int src) {
   V r{__shfl_sync(kFull, v.p, src), 0ull};
   if constexpr (Geo<K>::sum) r.s = __shfl_sync(kFull, v.s, src);
+  if constexpr (K == kResolve)
+    r.s = __shfl_sync(kFull, static_cast<uint32_t>(v.s), src);
   return r;
 }
 
@@ -296,12 +357,17 @@ __device__ __forceinline__ uint32_t chunk_op(uint32_t x, uint32_t lit,
 }
 
 // status word: flag << 32 | map; the bytes form: flag << 62 | map << 40 |
-// the 40-bit sum; the leaf form's sum in sums[2 * at + (flag == kInc)]
+// the 40-bit sum; the resolve scan: flag << 62 | reset bits << 32 |
+// values; the leaf form's sum in sums[2 * at + (flag == kInc)]
 template <int K>
 __device__ __forceinline__ void publish(const Args& a, long long at,
                                         unsigned flag, const V& v) {
   unsigned long long word;
-  if constexpr (K == kInitBytes) {
+  if constexpr (K == kResolve) {
+    word = (static_cast<unsigned long long>(flag) << 62) |
+           (static_cast<unsigned long long>(
+                mask_bits(static_cast<uint32_t>(v.s))) << 32) | v.p;
+  } else if constexpr (K == kInitBytes) {
     word = (static_cast<unsigned long long>(flag) << 62) |
            (static_cast<unsigned long long>(v.p) << 40) | (v.s & kSum40);
   } else {
@@ -319,7 +385,11 @@ __device__ __forceinline__ void publish(const Args& a, long long at,
 // sum is read from its own slot by the caller.
 template <int K>
 __device__ __forceinline__ unsigned unpack(unsigned long long word, V& v) {
-  if constexpr (K == kInitBytes) {
+  if constexpr (K == kResolve) {
+    v.p = static_cast<uint32_t>(word);
+    v.s = mask_bytes(static_cast<uint32_t>(word >> 32) & 0xFu);
+    return static_cast<unsigned>(word >> 62);
+  } else if constexpr (K == kInitBytes) {
     v.p = static_cast<uint32_t>(word >> 40) & 0x3FFFFFu;
     v.s = word & kSum40;
     return static_cast<unsigned>(word >> 62);
@@ -449,6 +519,12 @@ __device__ __forceinline__ void put32(uint4* wb, const uint32_t* u,
   }
 }
 
+// row r of the resolve scan's inputs: channel r of rflag (r < 4), then
+// channel r - 4 of val
+__device__ __forceinline__ const uint8_t* resolve_row(const Args& a, int r) {
+  return (r < 4 ? a.in0 : a.in1) + static_cast<long long>(r & 3) * a.len;
+}
+
 // the tile of ticket tk: its row, its index in the row
 struct Tile {
   long long row, j;
@@ -465,9 +541,41 @@ __device__ void stage_tile(const Args& a, uint4* sm, long long tk) {
   using G = Geo<K>;
   const Tile tl = tile_of(a, tk);
   const long long off = tl.j * G::tile * G::esz, nb = a.len * G::esz;
-  stage(sm, a.in0 + tl.row * nb, off, nb, G::chunks);
-  if constexpr (G::inputs == 2)
-    stage(sm + G::chunks, a.in1 + tl.row * nb, off, nb, G::chunks);
+  if constexpr (K == kResolve) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      stage(sm + r * G::chunks, resolve_row(a, r), off, nb, G::chunks);
+  } else {
+    stage(sm, a.in0 + tl.row * nb, off, nb, G::chunks);
+    if constexpr (G::inputs == 2)
+      stage(sm + G::chunks, a.in1 + tl.row * nb, off, nb, G::chunks);
+  }
+}
+
+// The resolve scan's leaves of the thread whose 16 positions start at
+// byte `lead` of staged chunk c0 of each row: values v (a byte a
+// channel) and reset masks m (0xFF where the channel resets)
+__device__ __forceinline__ void resolve_leaves(const Args& a,
+                                               const uint4* sm, int c0,
+                                               uint32_t* v, uint32_t* m) {
+  constexpr int NCH = Geo<kResolve>::chunks;
+  // one input at a time: its four channel rows, then their transpose
+#pragma unroll
+  for (int in = 0; in < 2; ++in) {
+    uint32_t w[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = 4 * in + c;
+      const int lead = static_cast<int>(
+          reinterpret_cast<uintptr_t>(resolve_row(a, r)) & 15u);
+      extract<4>(sm + r * NCH, c0, lead, w[c]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      transpose4(w[0][q], w[1][q], w[2][q], w[3][q], (in ? v : m) + 4 * q);
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m[k] = __vcmpne4(m[k], 0u);
 }
 
 // Element k of a leaf form's thread: its leaf and (initial) its npix,
@@ -502,8 +610,10 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
 
   // -- 3. the thread's elements, folded once
   uint32_t d[16];   // the bytes (+ 4 in the bytes form; the FSM's chunk
-                    // lengths - 1 in their place), or the leaves
-  uint32_t op[16];  // bytes form: each byte's op; leaf form: npix
+                    // lengths - 1 in their place), or the leaves (resolve:
+                    // their values)
+  uint32_t op[16];  // bytes form: each byte's op; leaf form: npix;
+                    // resolve: the reset masks
   V x{0u, 0ull};
   if constexpr (K == kFsmMaps || K == kFsmStarts) {
     extract<IT / 4>(sm, c0, lead0, d);
@@ -538,6 +648,11 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
     }
     x.p = ra | (g << 1) | (tt << 2) | ((ee & 63u) << 8) | (va << 14);
     x.s = ns;
+  } else if constexpr (K == kResolve) {
+    resolve_leaves(a, sm, c0, d, op);
+    x = V{d[0], op[0]};
+#pragma unroll
+    for (int k = 1; k < IT; ++k) x = comb<K>(x, V{d[k], op[k]});
   } else {
     extract<IT>(sm, c0, lead0, d);
     if constexpr (K == kInitLeaf) {
@@ -652,6 +767,38 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
       put32(wb, uw, a.out0, e + 4 * r, a.len, 8, IT, full);
       put32(wb, uo, a.out1, e + 4 * r, a.len, 8, IT, full);
     }
+  } else if constexpr (K == kResolve) {
+    // the leaves again from shared memory, each inclusive state with the
+    // seed added where no reset came, back to the four channel rows
+    resolve_leaves(a, sm, c0, d, op);
+    V acc = pre;
+    uint32_t o[16];
+#pragma unroll
+    for (int k = 0; k < IT; ++k) {
+      const V v{d[k], op[k]};
+      acc = (has || k > 0) ? comb<K>(acc, v) : v;
+      o[k] = resolve_comb(kSeedPx, acc.p, static_cast<uint32_t>(acc.s));
+    }
+    uint32_t w[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t c4[4];
+      transpose4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3], c4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c][q] = c4[c];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint8_t* dst = a.out0 + static_cast<long long>(c) * a.len + e;
+      if (e + IT <= a.len && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0u) {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(w[c][0], w[c][1], w[c][2], w[c][3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < IT; ++k)
+          if (e + k < a.len) dst[k] = static_cast<uint8_t>(byte_at(w[c], k));
+      }
+    }
   } else {
     // the maps: every inclusive one, from the thread's prefix
     const bool vec = full && ((row0 * 4) & 15) == 0;
@@ -681,7 +828,9 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
 template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
 one_pass_kernel(Args a) {
-  __shared__ uint4 sm[Geo<K>::smem];
+  extern __shared__ uint4 dyn_sm[];
+  __shared__ uint4 fixed_sm[Geo<K>::dyn ? 1 : Geo<K>::smem];
+  uint4* sm = Geo<K>::dyn ? dyn_sm : fixed_sm;
   __shared__ V wt[kWarps];
   __shared__ V tile_pre;
   __shared__ long long tk_s;
@@ -709,9 +858,17 @@ int run(Args a, long long rows, void* scratch, void* stream) {
   a.sums = a.status + tiles;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t words = 1 + tiles * (K == kInitLeaf ? 3 : 1);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, words * 8, st);
+  const size_t dyn = Geo<K>::dyn ? Geo<K>::smem * sizeof(uint4) : 0;
+  cudaError_t e;
+  if (dyn) {
+    e = cudaFuncSetAttribute(one_pass_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dyn));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = cudaMemsetAsync(scratch, 0, words * 8, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  one_pass_kernel<K><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(a);
+  one_pass_kernel<K><<<static_cast<unsigned>(tiles), kThreads, dyn, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -761,4 +918,11 @@ extern "C" int qoi_anch_scan(const void* leaf, void* out, void* scratch,
                              long long rows, long long len, void* stream) {
   return run<kAnch>(make_args(leaf, nullptr, out, nullptr, len), rows,
                     scratch, stream);
+}
+
+extern "C" int qoi_resolve_scan(const void* rflag, const void* val,
+                                void* out, void* scratch, long long m,
+                                void* stream) {
+  return run<kResolve>(make_args(rflag, val, out, nullptr, m), 1, scratch,
+                       stream);
 }

@@ -1,4 +1,4 @@
-// Encode staging: kernel S of the PyTorch/CUDA port, in two forms that
+// Encode staging: kernel S of the PyTorch/CUDA port, in three forms that
 // share one templated kernel.
 //
 // Bytes form, qoi_encode_stage. Replaces the Pallas kernel
@@ -14,6 +14,16 @@
 // table_hit_carry's overwrite scan (qoi_tpu/ops/table.py:216). px4 (N, 4)
 // uint8, any N >= 1 -> lo, hi, lens (N,) int32 (u32 bit patterns: record
 // bytes 0..3, bytes 4..5, the length) and the outgoing carry.
+//
+// Planes form, qoi_encode_stage_planes. Replaces, on the pack encode
+// (qoi_tpu/models/pipeline.py::_encode_pack_a), the same function's bytes
+// form, encode_stage_chunks(form="bytes") (:209-229), with the carries of
+// the words form: the same two blocked_scans, px4 (N, 4) uint8, any
+// N >= 1 -> staging (6, N) uint8 plane-major, lens (N,) int32 and the
+// outgoing carry. Its planes are JAX's: a record's bytes, 0 past its
+// length, except that every eq position (padding and run members that
+// emit nothing included) keeps its run byte OP_RUN | (run_pos - 1) % 62
+// in plane 0.
 //
 // Blocks are 1024 pixels, as the JAX kernel's default block. A thread
 // block of 256 threads takes one of them as 32 rows of 32 pixels: warp w
@@ -56,15 +66,16 @@
 //      the words form stores each pixel's lo, hi and length (4-byte
 //      stores, lanes on neighbouring words).
 // Before block 0 stands a virtual block whose words are final: in the
-// bytes form every slot 0 (an unwritten slot reads as the zero pixel,
+// fused bytes form every slot 0 (an unwritten slot reads as the zero pixel,
 // which makes the `before == packed` hit test of encode_stage.py:149-154
 // exact) and no literal; in the words form the incoming carry -- a slot
 // is table_in where written_in is set and 0 elsewhere (table.py:205-209),
 // with written_in as its written bit, and the last literal is the index
 // -1 - run_in, so that a leading run continues the pending one and
-// position 0 flushes it. The previous pixel of position 0 is the seed,
-// or prev_in. The bytes form then cuts the run to 0 at every block start
-// after the one holding last_pos, as the TPU kernel cuts its run carry
+// position 0 flushes it (the planes form takes the words form's carries
+// throughout). The previous pixel of position 0 is the seed, or prev_in.
+// The fused form then cuts the run to 0 at every block start after the
+// one holding last_pos, as the TPU kernel cuts its run carry
 // (encode_stage.py:216); the words form does not. In the words form the
 // last block writes the outgoing carry from its inclusive prefix: the
 // table and its written bits (an RGBA (0, 0, 0, 0) literal writes slot 0
@@ -74,17 +85,17 @@
 // block) load nothing and store nothing.
 // The C entries zero the ticket and the status words before each launch.
 //
-// Bound on the H100: memory traffic. Bytes form: 4 B/px read and 10 B/px
-// written (about 117 MB, ~0.035 ms at a 4K frame of 2^23 pixels). Words
-// form: 4 B/px read and 12 B/px written (132.7 MB, ~0.040 ms at 8,294,400
-// pixels). The design reads the pixels once and adds 65 status words (8 B)
-// a block: zeroed, written at most twice and read by the look-back (~1.5
-// B/px in all, a tenth of the bound's bytes). What it has to hide is
-// latency: each block waits for its ticket, its pixels and its look-back
-// in turn, so small blocks (eight resident an SM at 32 registers) with
-// four loads a thread in flight keep enough of them going. The rest of its
-// time goes to issuing integer instructions, which the byte-wise tests
-// and the one-word staging keep down.
+// Bound on the H100: memory traffic. Bytes and planes forms: 4 B/px read
+// and 10 B/px written (about 117 MB, ~0.035 ms at a 4K frame of 2^23
+// pixels). Words form: 4 B/px read and 12 B/px written (132.7 MB, ~0.040
+// ms at 8,294,400 pixels). The design reads the pixels once and adds 65
+// status words (8 B) a block: zeroed, written at most twice and read by
+// the look-back (~1.5 B/px in all, a tenth of the bound's bytes). What
+// it has to hide is latency: each block waits for its ticket, its pixels
+// and its look-back in turn, so small blocks (eight resident an SM at 32
+// registers) with four loads a thread in flight keep enough of them
+// going. The rest of its time goes to issuing integer instructions,
+// which the byte-wise tests and the one-word staging keep down.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,7 +115,11 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kSeed = 0xFF000000u;  // (0, 0, 0, 255) packed r|g|b|a
 constexpr unsigned kPass = 1u, kFinal = 2u;
 
-// the words form's carry in: a header of five values -- n_valid, the
+// the three forms: fused bytes (N, 6), words (lo, hi), planes (6, N); the
+// last two take the tile carries in and write the carry out
+enum Form { kFused = 0, kWords = 1, kPlanes = 2 };
+
+// the words and planes forms' carry in: a header of five values -- n_valid, the
 // carry's pixel count, run_in, prev_in packed, contains_last (0 no; 1
 // yes; 2 not given: the last pixel is here, yet the run goes out in the
 // carry, as the JAX function leaves it) -- each a launch argument or, where
@@ -172,27 +187,29 @@ struct StageArgs {
   int n;
   unsigned long long* scratch;     // the ticket, then 65 words a block
   int32_t* lens;                   // (n,)
-  // bytes form
+  // fused form
   int n_valid, last_pos;
   uint8_t* stag;                   // (n, 6)
-  // words form
+  // words and planes forms
   int hdr[kHeader];                // the carry in's header (kIn*)
   unsigned from_dev;               // ... its fields read from carry_in
   const int32_t* carry_in;
-  uint32_t* lo;                    // (n,)
-  uint32_t* hi;                    // (n,)
   long long* carry_out;            // kOut*
   uint8_t* written_out;            // (64,)
+  uint32_t* lo;                    // words: (n,)
+  uint32_t* hi;                    // words: (n,)
+  uint8_t* planes;                 // planes: (6, n)
 };
 
-// field k of the words form's carry-in header
+// field k of the carry-in header
 __device__ __forceinline__ int header(const StageArgs& a, int k) {
   return (a.from_dev >> k) & 1u ? a.carry_in[k] : a.hdr[k];
 }
 
-template <bool kWords>
+template <Form F>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 stage_kernel(StageArgs a) {
+  constexpr bool kCarry = F != kFused;
   __shared__ uint32_t spx[kBlock];
   __shared__ __align__(16) unsigned lmask[kRows][kSlots];  // its writers
   __shared__ unsigned wmask[kSlots];         // per slot: the rows that wrote it
@@ -204,7 +221,8 @@ stage_kernel(StageArgs a) {
   __shared__ uint32_t prev0;                 // the pixel before the block
   __shared__ int nv_s, last_s;               // n_valid, last_pos
   __shared__ uint32_t seed_s;                // the pixel before pixel 0
-  __shared__ __align__(16) uint32_t sst[kWords ? 4 : kBlock * 6 / 4];
+  // the block's staged bytes: (1024, 6) fused, (6, 1024) planes
+  __shared__ __align__(16) uint32_t sst[F == kWords ? 4 : kBlock * 6 / 4];
   __shared__ int blk_s;
   unsigned long long* ticket = a.scratch;
   unsigned long long* status = a.scratch + 1;
@@ -215,7 +233,7 @@ stage_kernel(StageArgs a) {
   if (t == 0) {
     blk_s = (int)atomicAdd(ticket, 1ull);
     litmask = 0u;
-    if constexpr (kWords) {
+    if constexpr (kCarry) {
       const int nv = min(max(header(a, kInValid), 0), n);
       nv_s = nv;
       last_s = header(a, kInLast) ? nv - 1 : -1;
@@ -228,7 +246,7 @@ stage_kernel(StageArgs a) {
   }
   if (t < kCols) {
     unsigned long long w;
-    if constexpr (kWords) {
+    if constexpr (kCarry) {
       if (t < kSlots) {
         const bool wr = (a.from_dev >> kInTable) & 1u &&
                         a.carry_in[kInWritten + t] != 0;
@@ -311,7 +329,7 @@ stage_kernel(StageArgs a) {
       if (col < kSlots) inval[col] = (uint32_t)in;
       else lit_in = (int)(uint32_t)in;
     }
-    if constexpr (kWords) {
+    if constexpr (kCarry) {
       if (lead && blk == (int)gridDim.x - 1) {
         // the outgoing carry: this block's inclusive prefix
         const unsigned long long inc = m ? own : in;
@@ -335,13 +353,13 @@ stage_kernel(StageArgs a) {
   __syncthreads();
 
   // -- 3. each pixel, from shared memory, against the last literal before
-  // the block: the words form's carry (virtual before the tile, -1 -
-  // run_in); the bytes form's run carry as a virtual literal, cut to 0
+  // the block: the tile carry (virtual before the tile, -1 - run_in); the
+  // fused form's run carry as a virtual literal, cut to 0
   // after a block whose valid region reaches past last_pos, as the TPU
   // kernel cuts it; otherwise the run since the last literal (or the
   // stream start), mod 62
   int lit_before;
-  if constexpr (kWords) {
+  if constexpr (kCarry) {
     lit_before = lit_in;
   } else {
     int run_in = 0;
@@ -440,15 +458,22 @@ stage_kernel(StageArgs a) {
       st = own;
       len = own_len;
     }
-    st &= (1ull << (8 * len)) - 1ull;
+    // the planes keep an eq position's run byte (its other bytes are 0)
+    if (F != kPlanes || !eq) st &= (1ull << (8 * len)) - 1ull;
     const uint32_t lo = (uint32_t)st, hi = (uint32_t)(st >> 32);
 
-    if constexpr (kWords) {
+    if constexpr (F == kWords) {
       if (gid < n) {
         a.lo[gid] = lo;
         a.hi[gid] = hi;
         a.lens[gid] = len;
       }
+    } else if constexpr (F == kPlanes) {
+      uint8_t* sp = reinterpret_cast<uint8_t*>(sst);
+#pragma unroll
+      for (int b = 0; b < 6; ++b)
+        sp[b * kBlock + i] = (uint8_t)(st >> (8 * b));
+      if (gid < n) a.lens[gid] = len;
     } else {
       a.lens[gid] = len;
       // pixels 2m and 2m + 1 fill words 3m .. 3m + 2 of the block's staging
@@ -462,25 +487,66 @@ stage_kernel(StageArgs a) {
       }
     }
   }
-  if constexpr (!kWords) {
+  if constexpr (F == kFused) {
     __syncthreads();
     for (int q = t; q < kBlock * 6 / 16; q += kThreads)
       reinterpret_cast<int4*>(a.stag + (size_t)base * 6)[q] =
           reinterpret_cast<const int4*>(sst)[q];
+  } else if constexpr (F == kPlanes) {
+    // plane b's row of the block at b * n + base: 16-byte stores where
+    // it is aligned and whole, else byte by byte up to n
+    __syncthreads();
+    const uint8_t* sp = reinterpret_cast<const uint8_t*>(sst);
+    const bool whole = base + kBlock <= n;
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+      uint8_t* row = a.planes + (size_t)b * n + base;
+      if (whole && ((uintptr_t)row & 15u) == 0u) {
+        if (t < kBlock / 16)
+          reinterpret_cast<int4*>(row)[t] =
+              reinterpret_cast<const int4*>(sp + b * kBlock)[t];
+      } else {
+        for (int i = t; i < kBlock && base + i < n; i += kThreads)
+          row[i] = sp[b * kBlock + i];
+      }
+    }
   }
 }
 
 // Zero the ticket and the status words (scratch: 1 + 65 * blocks 64-bit
 // words), then launch one block a 1024 pixels.
-template <bool kWords>
+template <Form F>
 int launch(StageArgs a, void* stream) {
   const int blocks = (a.n + kBlock - 1) / kBlock;
   const cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e = cudaMemsetAsync(
       a.scratch, 0, (1 + (size_t)kCols * blocks) * 8, st);
   if (e != cudaSuccess) return (int)e;
-  stage_kernel<kWords><<<blocks, kThreads, 0, st>>>(a);
+  stage_kernel<F><<<blocks, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The words and planes forms' arguments: any N >= 1; the carry in (kIn*
+// above): the header n_valid .. last as arguments, the fields marked in
+// from_dev and the table read from carry_in (133 int32 on the card; null
+// when from_dev is 0); carry_out: 66 64-bit words, written_out: 64 bytes
+// (kOut* above); lens: (N,) int32.
+StageArgs carry_args(const void* px4, int n, int n_valid, int count,
+                     int run_in, int prev_in, int last, unsigned from_dev,
+                     const void* carry_in, void* lens, void* carry_out,
+                     void* written_out, void* scratch) {
+  StageArgs a{};
+  a.px = (const uint32_t*)px4;
+  a.n = n;
+  a.scratch = (unsigned long long*)scratch;
+  a.lens = (int32_t*)lens;
+  const int hdr[kHeader] = {n_valid, count, run_in, prev_in, last};
+  for (int k = 0; k < kHeader; ++k) a.hdr[k] = hdr[k];
+  a.from_dev = from_dev;
+  a.carry_in = (const int32_t*)carry_in;
+  a.carry_out = (long long*)carry_out;
+  a.written_out = (uint8_t*)written_out;
+  return a;
 }
 
 }  // namespace
@@ -499,32 +565,34 @@ extern "C" int qoi_encode_stage(const void* px4, void* stag, void* lens,
   a.n_valid = n_valid;
   a.last_pos = last_pos;
   a.stag = (uint8_t*)stag;
-  return launch<false>(a, stream);
+  return launch<kFused>(a, stream);
 }
 
-// Any N >= 1. The carry in (kIn* above): the header n_valid .. last as
-// arguments, the fields marked in from_dev and the table read from
-// carry_in (133 int32 on the card; null when from_dev is 0); carry_out: 66
-// 64-bit words, written_out: 64 bytes (kOut* above); lo, hi, lens: (N,)
-// 32-bit.
+// lo, hi: (N,) 32-bit.
 extern "C" int qoi_encode_stage_words(
     const void* px4, int n, int n_valid, int count, int run_in, int prev_in,
     int last, unsigned from_dev, const void* carry_in, void* lo, void* hi,
     void* lens, void* carry_out, void* written_out, void* scratch,
     void* stream) {
   if (n <= 0 || (from_dev && !carry_in)) return (int)cudaErrorInvalidValue;
-  StageArgs a{};
-  a.px = (const uint32_t*)px4;
-  a.n = n;
-  a.scratch = (unsigned long long*)scratch;
-  a.lens = (int32_t*)lens;
-  const int hdr[kHeader] = {n_valid, count, run_in, prev_in, last};
-  for (int k = 0; k < kHeader; ++k) a.hdr[k] = hdr[k];
-  a.from_dev = from_dev;
-  a.carry_in = (const int32_t*)carry_in;
+  StageArgs a = carry_args(px4, n, n_valid, count, run_in, prev_in, last,
+                           from_dev, carry_in, lens, carry_out, written_out,
+                           scratch);
   a.lo = (uint32_t*)lo;
   a.hi = (uint32_t*)hi;
-  a.carry_out = (long long*)carry_out;
-  a.written_out = (uint8_t*)written_out;
-  return launch<true>(a, stream);
+  return launch<kWords>(a, stream);
+}
+
+// planes: (6, N) uint8, plane-major.
+extern "C" int qoi_encode_stage_planes(
+    const void* px4, int n, int n_valid, int count, int run_in, int prev_in,
+    int last, unsigned from_dev, const void* carry_in, void* planes,
+    void* lens, void* carry_out, void* written_out, void* scratch,
+    void* stream) {
+  if (n <= 0 || (from_dev && !carry_in)) return (int)cudaErrorInvalidValue;
+  StageArgs a = carry_args(px4, n, n_valid, count, run_in, prev_in, last,
+                           from_dev, carry_in, lens, carry_out, written_out,
+                           scratch);
+  a.planes = (uint8_t*)planes;
+  return launch<kPlanes>(a, stream);
 }

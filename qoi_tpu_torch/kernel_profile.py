@@ -1,4 +1,4 @@
-"""Where the time of the slide_val and encode_stage kernels goes, on the card.
+"""Where the time of the slide_val and staging kernels goes, on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -6,11 +6,13 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the kernels, prints the ptxas lines of the build (registers,
 spills), then, at the 4K shapes `chip_smoke.py` uses (the slide planes of a
-3840x2160 mixed RGBA frame's word-sum events, and the fused staging of that
-frame and of a 4K RGB photo frame), times each wrapper call with CUDA events
-(mean of 20 calls after one warm-up), the slide wrapper's output allocation
-alone, and lists every device activity one wrapper call causes, by
-torch.profiler over 10 calls (name, count per call, mean microseconds).
+3840x2160 mixed RGBA frame's word-sum events, and the staging of that
+frame and of a 4K RGB photo frame in its three forms: fused, words and
+planes), times each wrapper call with CUDA events (mean of 20 calls after
+one warm-up), the slide wrapper's output allocation alone, and lists every
+device activity one wrapper call causes, by torch.profiler over 10 calls
+(name, count per call, mean microseconds). Run on an older checkout (as
+an A/B against a parent), it skips a staging form that checkout lacks.
 Without a card it exits 2.
 """
 from __future__ import annotations
@@ -118,8 +120,12 @@ def main() -> int:
     del val, aux
     photo = px4_of(testimages.photo(W, H, 3, seed=3), 3)
     for label, px4 in (("mixed RGBA", mixed), ("photo RGB", photo)):
-        report(f"encode_stage wrapper, {label}, N={npc}",
-               lambda: kstage.encode_stage_pallas(px4, n))
+        for name in ("encode_stage_pallas", "encode_stage_words",
+                     "encode_stage_planes"):
+            stage = getattr(kstage, name, None)
+            if stage is not None:
+                report(f"{name} wrapper, {label}, N={npc}",
+                       lambda: stage(px4, n))
     return 0
 
 

@@ -47,6 +47,8 @@ _SIGNATURES = {
                          ctypes.c_int, _P],
     "qoi_encode_stage_words": [_P, *[ctypes.c_int] * 6, ctypes.c_uint,
                                *[_P] * 8],
+    "qoi_encode_stage_planes": [_P, *[ctypes.c_int] * 6, ctypes.c_uint,
+                                *[_P] * 7],
     "qoi_decode_scan": [_P, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_longlong, _P, _P, _P, _P],
     "qoi_encode_scan": [_P, ctypes.c_longlong, _P, _P, _P],
@@ -58,6 +60,7 @@ _SIGNATURES = {
     "qoi_initial_scan": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     "qoi_initial_w": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     "qoi_anch_scan": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
+    "qoi_resolve_scan": [_P, _P, _P, _P, ctypes.c_longlong, _P],
 }
 
 #: launches per kernel since the last `reset_launches()`; each wrapper
@@ -66,10 +69,12 @@ launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "block_maps": 0, "slide_val2": 0,
                             "place_words": 0, "encode_stage": 0,
                             "encode_stage_words": 0,
+                            "encode_stage_planes": 0,
                             "encode_scan": 0, "decode_scan": 0,
                             "numeric_scan": 0, "fsm_scan": 0,
                             "fsm_starts": 0, "initial_scan": 0,
-                            "initial_w_scan": 0, "anch_scan": 0}
+                            "initial_w_scan": 0, "anch_scan": 0,
+                            "resolve_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

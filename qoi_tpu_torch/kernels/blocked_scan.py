@@ -1,9 +1,9 @@
-"""Inclusive scans of the decoder's three associative combines: CUDA
-kernel `csrc/blocked_scan.cu` (one pass, decoupled look-back) and their
-plain twins.
+"""Inclusive scans of the decoders' associative combines: CUDA kernel
+`csrc/blocked_scan.cu` (one pass, decoupled look-back) and their plain
+twins.
 
 Counterpart of qoi_tpu/ops/scans.py::blocked_scan (its lax.scan at :142)
-for the combines the decode main path scans with it:
+for the combines the decode main path and v2 scan with it:
 
   fsm_scan        the chunk-start FSM (qoi_tpu/ops/fsm.py:82): (M,) uint8
                   chunk bytes -> (M,) int32 inclusive composed maps, the
@@ -22,6 +22,10 @@ for the combines the decode main path scans with it:
                   int64 each, as `decode_v3._initial_w` returns them
   anch_scan       `_anch_comb` (decode_v3.py:238, :266): (R, L) int32
                   leaves, each row scanned on its own -> (R, L) int32
+  resolve_scan    v2's per-channel reset-or-add combine with the seed
+                  epilogue (qoi_tpu/models/decode_v2.py:146-147): rflag
+                  and val, (4, M) uint8 channel-major -> the (4, M) uint8
+                  px after every byte
 
 Each inclusive map is combine(earlier, later) folded from its row's
 first element, which is its leaf unchanged. The twins are `assoc_scan`
@@ -46,6 +50,8 @@ TILE_FSM = 16384
 TILE_BYTES = 8192
 TILE_LEAVES = 4096
 TILE_ANCH = 8192
+#: positions a tile of the resolve scan: 512 threads x 16
+TILE_RESOLVE = 8192
 #: longest bytes-form row: the status word holds a 40-bit npix sum, and
 #: a chunk covers at most 62 pixels
 MAX_BYTES = 1 << 34
@@ -232,6 +238,23 @@ def anch_scan_plain(leaf: torch.Tensor) -> torch.Tensor:
     return to_i32(assoc_scan(_anch_comb, u32(leaf)))
 
 
+def _resolve_comb(a, b):
+    """v2's reset-or-add, b after a: (max(ra, rb), vb where rb else va +
+    vb mod 256), on uint8 (flag, value) pairs."""
+    (ra, va), (rb, vb) = a, b
+    return torch.maximum(ra, rb), torch.where(rb != 0, vb, va + vb)
+
+
+def resolve_scan_plain(rflag: torch.Tensor,
+                       val: torch.Tensor) -> torch.Tensor:
+    """Plain twin of resolve_scan: log-depth `assoc_scan` of the combine,
+    then the seed added where no reset came."""
+    rs, vs = assoc_scan(_resolve_comb, (rflag, val))
+    seed = torch.tensor(fmt.SEED_PIXEL, dtype=torch.uint8,
+                        device=vs.device)[:, None]
+    return torch.where(rs != 0, vs, seed + vs)
+
+
 def _check(name: str, dtype: torch.dtype, ndim: int, *tensors) -> None:
     """Raise unless the tensors share one shape of `ndim` dims, have
     `dtype` and lie on one device."""
@@ -379,4 +402,29 @@ def anch_scan(leaf: torch.Tensor) -> torch.Tensor:
                      leaf.device).data_ptr(), rows, length,
             _build.stream_ptr(leaf.device))
     _build.launched("anch_scan", rc)
+    return out
+
+
+def resolve_scan(rflag: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """(4, M) uint8 reset flags and values, channel-major -> (4, M) uint8
+    px after every byte: where a reset came at or before it, the value
+    after the last one plus the adds since, mod 256; else the seed's
+    channel plus every add."""
+    _check("resolve_scan", torch.uint8, 2, rflag, val)
+    if rflag.shape[0] != 4:
+        raise ValueError(f"resolve_scan: {rflag.shape[0]} channels, want 4")
+    if rflag.device.type == "cpu":
+        return resolve_scan_plain(rflag, val)
+    _build.check_cuda("resolve_scan", rflag, val, dtype=torch.uint8)
+    m = rflag.shape[1]
+    dev = rflag.device
+    out = torch.empty((4, m), dtype=torch.uint8, device=dev)
+    if m == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _build.lib().qoi_resolve_scan(
+            rflag.data_ptr(), val.data_ptr(), out.data_ptr(),
+            _scratch(1, m, TILE_RESOLVE, False, dev).data_ptr(), m,
+            _build.stream_ptr(dev))
+    _build.launched("resolve_scan", rc)
     return out

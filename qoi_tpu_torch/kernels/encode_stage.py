@@ -1,5 +1,5 @@
 """Encode staging: CUDA kernels `csrc/encode_stage.cu` and their plain
-twins, in two forms.
+twins, in three forms.
 
 Bytes form (port of qoi_tpu/kernels/encode_stage.py::encode_stage_pallas):
 encoder stages 1-4 in one pass, px4 (N, 4) uint8 -> (staging (N, 6)
@@ -19,6 +19,12 @@ out, whose run segmentation (a cummax) and table carry (an overwrite
 scan) are `blocked_scan`s in the JAX package (qoi_tpu/ops/scans.py:102),
 in one launch of the same kernel design: any N >= 1, no run cut, the
 incoming carry as a virtual block before block 0.
+
+Planes form (`encode_stage_planes`, the pack encode's staging): the JAX
+`encode_stage_chunks(form="bytes")` with the same carries, the (6, N)
+byte planes written plane-major by the same kernel: a record's bytes,
+0 past its length, but every eq position keeps its run byte in plane 0
+(the fused form zeroes it), as the JAX planes do.
 """
 from __future__ import annotations
 
@@ -164,6 +170,58 @@ def encode_stage_words_plain(px4: torch.Tensor, n_valid=None, prev_in=None,
                                  ch.lens.to(torch.int32), ch.carry)
 
 
+def encode_stage_planes_plain(px4: torch.Tensor, n_valid=None,
+                              prev_in=None, run_in=None, table_in=None,
+                              contains_last=None) -> pipeline.EncodedChunks:
+    """Plain PyTorch twin: the port's encode_stage_chunks(form="bytes")
+    in plain torch, lens as the kernel's int32."""
+    ch = pipeline.stage_chunks_plain(
+        px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
+        contains_last=contains_last, form="bytes")
+    return pipeline.EncodedChunks(ch.staging, ch.lens.to(torch.int32),
+                                  ch.carry)
+
+
+def _check_carry_form(name: str, px4: torch.Tensor, n_valid) -> int:
+    """Raise unless px4 is (N, 4) with N >= 1 and a given n_valid lies in
+    [0, N]; returns N."""
+    if px4.dim() != 2 or px4.shape[1] != 4:
+        raise ValueError(f"{name}: px4 shape {tuple(px4.shape)}, want "
+                         "(N, 4)")
+    n = px4.shape[0]
+    if n == 0:
+        raise ValueError(f"{name}: N = 0")
+    if not isinstance(n_valid, torch.Tensor) and n_valid is not None and (
+            not 0 <= int(n_valid) <= n):
+        raise ValueError(f"{name}: n_valid {n_valid} outside [0, {n}]")
+    return n
+
+
+def _launch_carry_form(name: str, entry: str, px4: torch.Tensor, outs,
+                       n_valid, prev_in, run_in, table_in, contains_last):
+    """Launch the words or planes kernel (C entry `entry`) on a CUDA px4
+    with the carry in; `outs` are its output tensors in the entry's order
+    (between carry_in and carry_out, lens last). Returns the carry out."""
+    _build.check_cuda(name, px4, dtype=torch.uint8)
+    if px4.data_ptr() % 4:
+        raise ValueError(f"{name}: px4 must be 4-byte aligned")
+    n, dev = px4.shape[0], px4.device
+    header, from_dev, cin = _carry_args(n, n_valid, prev_in, run_in,
+                                        table_in, contains_last, dev)
+    cout = torch.empty(2 + 64, dtype=torch.int64, device=dev)
+    wr = torch.empty(64, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(1 + _COLS * -(-n // _BLOCK), dtype=torch.int64,
+                          device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(_build.lib(), entry)(
+            px4.data_ptr(), n, *header, from_dev,
+            None if cin is None else cin.data_ptr(),
+            *(t.data_ptr() for t in outs), cout.data_ptr(), wr.data_ptr(),
+            scratch.data_ptr(), _build.stream_ptr(dev))
+    _build.launched(name, rc)
+    return _carry_out(cout, wr)
+
+
 def encode_stage_words(px4: torch.Tensor, n_valid=None, prev_in=None,
                        run_in=None, table_in=None,
                        contains_last=None) -> pipeline.EncodedWords:
@@ -175,39 +233,37 @@ def encode_stage_words(px4: torch.Tensor, n_valid=None, prev_in=None,
     contains_last may be Python values or tensors on the card, and are
     read there. CPU tensors take the plain twin; CUDA tensors launch the
     kernel (or raise)."""
-    if px4.dim() != 2 or px4.shape[1] != 4:
-        raise ValueError(f"encode_stage_words: px4 shape "
-                         f"{tuple(px4.shape)}, want (N, 4)")
-    n = px4.shape[0]
-    if n == 0:
-        raise ValueError("encode_stage_words: N = 0")
-    if not isinstance(n_valid, torch.Tensor) and n_valid is not None and (
-            not 0 <= int(n_valid) <= n):
-        raise ValueError(f"encode_stage_words: n_valid {n_valid} outside "
-                         f"[0, {n}]")
+    n = _check_carry_form("encode_stage_words", px4, n_valid)
     if px4.device.type == "cpu":
         return encode_stage_words_plain(px4, n_valid, prev_in, run_in,
                                         table_in, contains_last)
-    _build.check_cuda("encode_stage_words", px4, dtype=torch.uint8)
-    if px4.data_ptr() % 4:
-        raise ValueError("encode_stage_words: px4 must be 4-byte aligned")
-    dev = px4.device
-    header, from_dev, cin = _carry_args(n, n_valid, prev_in, run_in,
-                                        table_in, contains_last, dev)
-    lo, hi, lens = (torch.empty(n, dtype=torch.int32, device=dev)
+    lo, hi, lens = (torch.empty(n, dtype=torch.int32, device=px4.device)
                     for _ in range(3))
-    cout = torch.empty(2 + 64, dtype=torch.int64, device=dev)
-    wr = torch.empty(64, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(1 + _COLS * -(-n // _BLOCK), dtype=torch.int64,
-                          device=dev)
-    with torch.cuda.device(dev):
-        rc = _build.lib().qoi_encode_stage_words(
-            px4.data_ptr(), n, *header, from_dev,
-            None if cin is None else cin.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), lens.data_ptr(), cout.data_ptr(), wr.data_ptr(),
-            scratch.data_ptr(), _build.stream_ptr(dev))
-    _build.launched("encode_stage_words", rc)
-    return pipeline.EncodedWords(lo, hi, lens, _carry_out(cout, wr))
+    carry = _launch_carry_form(
+        "encode_stage_words", "qoi_encode_stage_words", px4, (lo, hi, lens),
+        n_valid, prev_in, run_in, table_in, contains_last)
+    return pipeline.EncodedWords(lo, hi, lens, carry)
+
+
+def encode_stage_planes(px4: torch.Tensor, n_valid=None, prev_in=None,
+                        run_in=None, table_in=None,
+                        contains_last=None) -> pipeline.EncodedChunks:
+    """Byte-plane staging with the tile carries: px4 (N, 4) uint8, any
+    N >= 1 -> EncodedChunks with staging (6, N) uint8 (JAX's planes: an
+    eq position keeps its run byte in plane 0), lens (N,) int32 and the
+    outgoing EncoderCarry, as `encode_stage_words` takes and returns
+    them. CPU tensors take the plain twin; CUDA tensors launch the
+    kernel (or raise)."""
+    n = _check_carry_form("encode_stage_planes", px4, n_valid)
+    if px4.device.type == "cpu":
+        return encode_stage_planes_plain(px4, n_valid, prev_in, run_in,
+                                         table_in, contains_last)
+    staging = torch.empty((6, n), dtype=torch.uint8, device=px4.device)
+    lens = torch.empty(n, dtype=torch.int32, device=px4.device)
+    carry = _launch_carry_form(
+        "encode_stage_planes", "qoi_encode_stage_planes", px4,
+        (staging, lens), n_valid, prev_in, run_in, table_in, contains_last)
+    return pipeline.EncodedChunks(staging, lens, carry)
 
 
 def _carry_out(cout: torch.Tensor, wr: torch.Tensor) -> pipeline.EncoderCarry:

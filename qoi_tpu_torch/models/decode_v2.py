@@ -9,7 +9,8 @@ no record compaction:
   INDEX values `ops/table.table_select_local/carry`: the table value each
                INDEX reads, under last-writer-wins
   pixel values per-channel reset-or-add scans (DIFF/LUMA add mod 256,
-               RGB/RGBA/INDEX reset, RUN identity) by `assoc_scan`
+               RGB/RGBA/INDEX reset, RUN identity): the one-pass kernel
+               `kernels/blocked_scan.resolve_scan` on the card
 
 INDEX indirection (a chunk copying a value that came through INDEX itself)
 is the one recurrence left: it resolves by a host-level fixpoint of rounds,
@@ -17,7 +18,7 @@ each a table query and a scan; round k is exact for every chunk whose
 INDEX nesting is < k. A round that changes no px certifies the decode; a
 stream that does not converge in `_MAX_ROUNDS` goes to the v1 decoder
 (which falls back to the sequential one). Plain PyTorch on the given
-device, one host read a round.
+device around that scan, one host read a round.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ import numpy as np
 import torch
 
 from .. import format as fmt
+from ..kernels import blocked_scan as kbs
 from ..ops import fsm, table
-from ..ops.scans import assoc_scan, exclusive_cumsum, last_mark
+from ..ops.scans import exclusive_cumsum, last_mark
 from . import decode_pipeline as v1
 
 _MAX_ROUNDS = 12
@@ -96,8 +98,17 @@ def _bytes4(x: torch.Tensor) -> torch.Tensor:
 
 def _resolve_scan(f, lit, deltas, idx_val, idx_found):
     """Per-channel reset-or-add scans -> the px after every byte, (4, M)
-    uint8, channel-major. idx_val / idx_found: the values the INDEX chunks
-    read this round (an unfound slot reads the zero entry)."""
+    uint8, channel-major: one `resolve_scan` (the kernel on a CUDA
+    tensor) of `_resolve_leaves`."""
+    return kbs.resolve_scan(*_resolve_leaves(f, lit, deltas, idx_val,
+                                             idx_found))
+
+
+def _resolve_leaves(f, lit, deltas, idx_val, idx_found):
+    """The scan's leaves: (rflag, val), (4, M) uint8 each, channel-major:
+    RGB/RGBA/INDEX reset to their value, DIFF/LUMA add their deltas.
+    idx_val / idx_found: the values the INDEX chunks read this round (an
+    unfound slot reads the zero entry)."""
     lit_b = _bytes4(lit)
     d_b = _bytes4(deltas)      # byte 3 is 0: no alpha delta
     iv = _bytes4(torch.where(idx_found, idx_val, 0))
@@ -108,14 +119,7 @@ def _resolve_scan(f, lit, deltas, idx_val, idx_found):
     rflag = torch.stack([reset_rgb, reset_rgb, reset_rgb, reset_a])
     rval = torch.where(torch.stack([lit_rgb, lit_rgb, lit_rgb, f["is_rgba"]]),
                        lit_b, iv)
-    val = torch.where(rflag, rval, d_b)
-
-    def combine(a, b):
-        (ra, va), (rb, vb) = a, b
-        return torch.maximum(ra, rb), torch.where(rb != 0, vb, va + vb)
-
-    rs, vs = assoc_scan(combine, (rflag.to(torch.uint8), val))
-    return torch.where(rs != 0, vs, _seed(vs.device)[:, None] + vs)
+    return rflag.to(torch.uint8), torch.where(rflag, rval, d_b)
 
 
 def _round_a(data, flags, pxa):

@@ -17,9 +17,11 @@ byte-plane staging `form="bytes"`) and the two-tier sort
 `compact.compact_bytes6` (`encode_device_split`, whose table runs in
 two phases).
 
-u32 values are int64 in [0, 2**32) (see _bits), except the word-form
-staging's on the card: the staging kernel (kernels/encode_stage,
-`csrc/encode_stage.cu`) returns lo, hi and lens as int32 bit patterns.
+u32 values are int64 in [0, 2**32) (see _bits), except the staging's on
+the card: the staging kernels (kernels/encode_stage,
+`csrc/encode_stage.cu`) return the word form's lo, hi and lens and the
+byte-plane form's lens as int32 (bit patterns), where the plain code
+returns int64.
 """
 from __future__ import annotations
 
@@ -84,7 +86,9 @@ class EncodedChunks(NamedTuple):
     """Per-pixel chunk staging in byte-plane form."""
 
     staging: torch.Tensor  # (6, N) uint8 byte planes: [flush?] + chunk bytes
-    lens: torch.Tensor     # (N,) int64 emitted byte count (0 for run members)
+    lens: torch.Tensor     # (N,) emitted byte count (0 for run members):
+                           # int32 from the staging kernel (CUDA tensors),
+                           # int64 from the plain code
     carry: EncoderCarry
 
 
@@ -123,18 +127,21 @@ def encode_stage_chunks(
     cuts the pending run before the marked positions
     (`scans.run_segmentation`).
 
-    On a CUDA tensor form="words" is one launch of the staging kernel,
-    `kernels/encode_stage.encode_stage_words` (the main path, the
-    streamed encode's tiles and the sequence-parallel encode's phase B).
-    form="bytes", table_local=, last_pos= and run_resets= keep the plain
-    code on every device: they serve `encode_device_split`, the pack
-    encode and the fused staging's twin."""
-    if (form == "words" and px4.device.type == "cuda"
-            and table_local is None and last_pos is None
-            and run_resets is None):
-        return kstage.encode_stage_words(
-            px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
-            contains_last=contains_last)
+    On a CUDA tensor each form is one launch of a staging kernel:
+    form="words" of `kernels/encode_stage.encode_stage_words` (the main
+    path, the streamed encode's tiles and the sequence-parallel encode's
+    phase B), form="bytes" of `encode_stage_planes` (the pack encode).
+    table_local=, last_pos= and run_resets= keep the plain code on every
+    device: table_local= serves `encode_device_split` (the kernel replays
+    the table itself, so a precomputed block-local table has nothing to
+    feed), the other two the fused staging's twin."""
+    if (px4.device.type == "cuda" and table_local is None
+            and last_pos is None and run_resets is None
+            and form in ("words", "bytes")):
+        stage = (kstage.encode_stage_words if form == "words"
+                 else kstage.encode_stage_planes)
+        return stage(px4, n_valid, prev_in=prev_in, run_in=run_in,
+                     table_in=table_in, contains_last=contains_last)
     return stage_chunks_plain(
         px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
         contains_last=contains_last, table_local=table_local,
@@ -157,8 +164,9 @@ def stage_chunks_plain(
     run_resets: Optional[torch.Tensor] = None,
 ):
     """`encode_stage_chunks` in plain torch on any device (its CPU route,
-    and the words form's twin, `kernels/encode_stage.
-    encode_stage_words_plain`), its lo, hi and lens int64."""
+    and the twin of the words and planes kernels, `kernels/encode_stage.
+    encode_stage_words_plain` and `encode_stage_planes_plain`), its lo,
+    hi and lens int64."""
     n = px4.shape[0]
     dev = px4.device
     io = torch.arange(n, device=dev)

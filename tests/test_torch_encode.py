@@ -123,6 +123,22 @@ def test_encode_stage_chunks_words_matches_jax(images, case, carry):
         assert_same(a, b)
 
 
+@pytest.mark.parametrize("carry", ["seed", "carry_mid", "carry_last"])
+@pytest.mark.parametrize("case", ["mixed", "palette_alpha", "runs"])
+def test_encode_stage_chunks_bytes_matches_jax(images, case, carry):
+    """The byte-plane form (the pack encode's staging): planes, lens and
+    every carry field."""
+    padded, n = images[case]
+    jk, tk = _carry_in(carry)
+    want = jpipe.encode_stage_chunks(jnp.asarray(padded), jnp.int32(n),
+                                     form="bytes", **jk)
+    got = tpipe.encode_stage_chunks(to_torch(padded), n, form="bytes", **tk)
+    assert_same(want.staging, got.staging)
+    assert_same(want.lens, got.lens)
+    for a, b in zip(want.carry, got.carry):
+        assert_same(a, b)
+
+
 @pytest.fixture(scope="module")
 def records(images):
     """Record words of the mixed image from the JAX stages (numpy)."""

@@ -24,8 +24,8 @@ from qoi_tpu_torch.kernels import numeric_scan as kns
 from qoi_tpu_torch.kernels import pack as kpack
 from qoi_tpu_torch.kernels import scan_codec as kscan
 from qoi_tpu_torch.kernels import slide as kslide
-from qoi_tpu_torch.models import (decode_pipeline, decode_v3, pipeline,
-                                  scan_codec)
+from qoi_tpu_torch.models import (decode_pipeline, decode_v2, decode_v3,
+                                  pipeline, scan_codec)
 from qoi_tpu_torch.ops import compact
 from qoi_tpu_torch.utils import testimages
 from numeric_scan_cases import (all_index_planes, deep_chain_planes,
@@ -778,6 +778,103 @@ def test_encode_tiled_launches_the_words_kernel(dev):
         assert launches["encode_stage_words"] == 1, f"rank {r}: {launches}"
 
 
+# ---- encode_stage_planes: the pack encode's byte-plane staging ----------
+
+def _planes_case(dev, px4, n_valid=None, **kw):
+    """The planes kernel with the carry as given, against its twin with
+    the carry on the card: planes, lens and every carry field."""
+    got = kstage.encode_stage_planes(px4, n_valid, **kw)
+    want = kstage.encode_stage_planes_plain(
+        px4, _on(dev, n_valid), **{k: _on(dev, v) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    for g, w in zip((got.staging, got.lens, *got.carry),
+                    (want.staging, want.lens, *want.carry)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+    return got
+
+
+@pytest.mark.parametrize("kind", ["mixed", "photo_rgb", "one_colour"])
+def test_encode_stage_planes_matches_twin_4k(dev, frames_4k, kind):
+    """The pack encode's shape: a 4K frame in its 2^23-pixel bucket, the
+    seed carry in, the carry out."""
+    frames, n = frames_4k
+    _planes_case(dev, frames[kind].to(dev), n)
+
+
+@pytest.mark.parametrize("n,n_valid", [(1, 1), (1000, 1000), (1024, 1024),
+                                       (1025, 1025), (1025, 700),
+                                       (4097, 4000), (4100, 4100),
+                                       (1100 * 1024 + 3, 1100 * 1024)])
+def test_encode_stage_planes_ragged(dev, n, n_valid):
+    """Any N: one block, a ragged last block and plane rows off 16 bytes
+    (byte stores), n_valid below N (padding keeps its run byte), 1101
+    blocks."""
+    img = testimages.mixed(1100, 1025, 4, seed=n % 7)
+    px4, _ = _px4(img, 1100 * 1025)
+    _planes_case(dev, px4[:n].to(dev), n_valid)
+
+
+@pytest.mark.parametrize("run_in", [0, 1, 61])
+@pytest.mark.parametrize("last", [False, True, None])
+def test_encode_stage_planes_carries(dev, run_in, last):
+    """Carries in as Python values and as tensors on the card, with a
+    table whose unwritten entries are garbage, and the carry out."""
+    rng = np.random.default_rng(run_in + 3)
+    tbl = torch.from_numpy(rng.integers(0, 1 << 32, 64, dtype=np.int64))
+    wr = torch.from_numpy(rng.random(64) < 0.5)
+    px4, n = _px4(testimages.mixed(130, 100, 4, seed=run_in), 16384)
+    px4[:300] = torch.tensor([12, 200, 7, 255], dtype=torch.uint8)
+    px4[:40] = 0
+    px4 = px4.to(dev)
+    prev = torch.tensor([12, 200, 7, 255], dtype=torch.uint8)
+    for on_card in (False, True):
+        to = (lambda x: x.to(dev)) if on_card else (lambda x: x)
+        kw = dict(prev_in=to(prev), table_in=(to(tbl), to(wr)),
+                  run_in=torch.tensor(run_in, device=dev) if on_card
+                  else run_in,
+                  contains_last=last)
+        _planes_case(dev, px4, n, **kw)
+        _planes_case(dev, px4, torch.tensor(n - 77, device=dev), **kw)
+    _planes_case(dev, px4, None, contains_last=last)
+
+
+def test_encode_stage_planes_offset_view(dev):
+    """An input view 4 bytes off its buffer's start."""
+    px4, n = _px4(testimages.mixed(200, 120, 4, seed=2), 24577)
+    view = px4.to(dev)[1:]
+    assert view.data_ptr() % 16 == 4
+    _planes_case(dev, view, n - 1, run_in=5, contains_last=False)
+
+
+def test_pack_encode_launches_the_planes_kernel(dev, frames_4k,
+                                                monkeypatch):
+    """encode_device_pack at 4K: the oracle's bytes, one planes launch a
+    frame and no plain staging; 100 launches back to back, each equal to
+    the first."""
+    frames, n = frames_4k
+    img = testimages.mixed(3840, 2160, 4, seed=3)
+    want = oracle.encode(img, fmt.StreamDesc(3840, 2160, 4))
+    px4 = frames["mixed"].to(dev)
+    first = _planes_case(dev, px4, n)
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain staging on the card")
+
+    monkeypatch.setattr(pipeline, "stage_chunks_plain", no_plain)
+    _build.reset_launches()
+    buf, tot = pipeline.encode_device_pack(px4, n)
+    got = (fmt.pack_header(fmt.StreamDesc(3840, 2160, 4))
+           + buf[: int(tot)].cpu().numpy().tobytes() + fmt.TRAILER)
+    assert got == want
+    assert _build.launches["encode_stage_planes"] == 1
+    runs = [kstage.encode_stage_planes(px4, n) for _ in range(100)]
+    torch.cuda.synchronize()
+    for r in runs:
+        assert torch.equal(r.staging, first.staging)
+        assert torch.equal(r.lens, first.lens)
+
+
 def test_wrappers_count_launches(dev):
     _build.reset_launches()
     z = torch.zeros((2, 8), dtype=torch.int32, device=dev)
@@ -790,6 +887,8 @@ def test_wrappers_count_launches(dev):
         torch.zeros((1024, 4), dtype=torch.uint8, device=dev), 7)
     kstage.encode_stage_words(
         torch.zeros((300, 4), dtype=torch.uint8, device=dev), 7)
+    kstage.encode_stage_planes(
+        torch.zeros((300, 4), dtype=torch.uint8, device=dev), 7)
     kscan.encode_scan(z[0])
     kscan.decode_scan(z[0].view(torch.uint8), 4, 4,
                       torch.zeros(65, dtype=torch.int32, device=dev))
@@ -801,15 +900,19 @@ def test_wrappers_count_launches(dev):
     kbs.initial_w_scan(z[0].view(torch.uint8),
                        z[1].view(torch.uint8) != 0)
     kbs.anch_scan(z)
+    z4 = torch.zeros((4, 8), dtype=torch.uint8, device=dev)
+    kbs.resolve_scan(z4, z4)
     torch.cuda.synchronize()
     assert _build.launches == {"slide_val": 1, "expand_px": 1,
                                "block_maps": 1, "slide_val2": 1,
                                "place_words": 1, "encode_stage": 1,
                                "encode_stage_words": 1,
+                               "encode_stage_planes": 1,
                                "encode_scan": 1, "decode_scan": 1,
                                "numeric_scan": 1, "fsm_scan": 1,
                                "fsm_starts": 1, "initial_scan": 1,
-                               "initial_w_scan": 1, "anch_scan": 1}
+                               "initial_w_scan": 1, "anch_scan": 1,
+                               "resolve_scan": 1}
 
 
 # ---- blocked_scan: the decode's three one-pass scans ---------------------
@@ -987,6 +1090,77 @@ def test_decode_device_launches_each_scan(dev):
         assert _build.launches["fsm_scan"] == 0
         assert _build.launches["initial_scan"] == 0
         assert _build.launches["anch_scan"] >= 1
+
+
+# ---- resolve_scan: v2's reset-or-add scan ------------------------------
+
+#: ragged lengths around the kernel's 8192-position tiles, and 1101 tiles
+RESOLVE_LENGTHS = [1, 17, 4095, 4097, 8191, 8192, 8193, 70001,
+                   8192 * 1101 + 5]
+
+
+def _resolve_leaves(m, seed, offset=0, dev=None):
+    """(4, M) uint8 rflag and val: resets of RGB only, alpha only and
+    both, sparse, values of any byte (adds that wrap mod 256), each a
+    contiguous view `offset` bytes into its buffer."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.random(m) < 0.02
+    alpha = rng.random(m) < 0.01
+    f = np.stack([rgb, rgb, rgb, alpha]).astype(np.uint8)
+    v = rng.integers(0, 256, (4, m), dtype=np.uint8)
+    out = []
+    for x in (f, v):
+        buf = torch.zeros(4 * m + offset, dtype=torch.uint8, device=dev)
+        buf[offset:] = torch.from_numpy(x.reshape(-1)).to(dev)
+        out.append(buf[offset:].view(4, m))
+    return out
+
+
+@pytest.mark.parametrize("m", RESOLVE_LENGTHS)
+def test_resolve_scan_kernel_matches_twin(dev, m):
+    for offset in (0, 5):
+        rflag, val = _resolve_leaves(m, m + offset, offset, dev)
+        _same_scan((kbs.resolve_scan(rflag, val),),
+                   (kbs.resolve_scan_plain(rflag, val),))
+
+
+def _v2_leaves(dev, stream):
+    """v2's round-0 leaves of a stream padded as `decode_v2.decode` pads
+    it."""
+    raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(decode_pipeline.bucket_size(len(raw)), np.uint8)
+    pad[: len(raw)] = raw
+    data = torch.from_numpy(pad).to(dev)
+    flags, lit, deltas, _, _ = decode_v2._fields(data, len(raw) - 8)
+    f = decode_v2._unpack_flags(flags)
+    return data, len(raw) - 8, decode_v2._resolve_leaves(
+        f, lit, deltas, torch.zeros_like(lit), torch.zeros_like(f["starts"]))
+
+
+@pytest.mark.parametrize("kind", ["photo", "mixed"])
+def test_resolve_scan_at_a_4k_stream(dev, kind):
+    """The 4K photo and mixed streams' round-0 leaves: the kernel equals
+    the twin, 100 launches back to back equal the first, and
+    `_decode_v2_device` launches it once a resolve (round 0 and each
+    fixpoint round)."""
+    make = getattr(testimages, kind)
+    img = make(3840, 2160, 4, seed=3)
+    s = oracle.encode(img, fmt.StreamDesc(3840, 2160, 4))
+    data, clen, (rflag, val) = _v2_leaves(dev, s)
+    first = kbs.resolve_scan(rflag, val)
+    _same_scan((first,), (kbs.resolve_scan_plain(rflag, val),))
+    runs = [kbs.resolve_scan(rflag, val) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, first) for r in runs)
+    _build.reset_launches()
+    npc = decode_pipeline.bucket_size(3840 * 2160)
+    out, conv, rounds = decode_v2._decode_v2_device(data, clen, npc)
+    torch.cuda.synchronize()
+    assert _build.launches["resolve_scan"] == 1 + rounds
+    if conv:
+        want = torch.from_numpy(np.ascontiguousarray(
+            img.reshape(-1, 4).T)).to(dev)
+        assert torch.equal(out[:, : 3840 * 2160], want)
 
 
 @pytest.mark.parametrize("ch", [3, 4])

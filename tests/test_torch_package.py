@@ -345,10 +345,12 @@ def test_launch_counts_start_at_zero_and_reset():
     assert set(_build.launches) == {"slide_val", "expand_px", "block_maps",
                                     "slide_val2", "place_words",
                                     "encode_stage", "encode_stage_words",
+                                    "encode_stage_planes",
                                     "encode_scan", "decode_scan",
                                     "numeric_scan",
                                     "fsm_scan", "fsm_starts", "initial_scan",
-                                    "initial_w_scan", "anch_scan"}
+                                    "initial_w_scan", "anch_scan",
+                                    "resolve_scan"}
     assert all(v == 0 for v in _build.launches.values())
 
 

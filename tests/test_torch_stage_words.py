@@ -1,5 +1,7 @@
 """The encode main path's word-form staging (`encode_stage_words`, kernel
-`qoi_encode_stage_words` of csrc/encode_stage.cu) on the CPU.
+`qoi_encode_stage_words` of csrc/encode_stage.cu) and the pack encode's
+byte-plane staging (`encode_stage_planes`, kernel
+`qoi_encode_stage_planes`, the same design) on the CPU.
 
 The kernel runs only on the card, where tests/test_torch_kernels_gpu.py
 holds it against its twin. Here, exactly (tolerance 0, an integer codec),
@@ -17,7 +19,13 @@ every record and every field of the outgoing carry:
   through the wrapper's `_carry_out`);
 - three tiles chained through the carry against the whole frame;
 - the readers of `EncodedWords`, which take the kernel's int32 bit
-  patterns and the plain code's int64 alike.
+  patterns and the plain code's int64 alike;
+- the planes form of the same model (a block's six 1024-byte plane rows
+  staged, then stored as 16-byte chunks where the row k * N + base is
+  aligned and whole, else byte by byte; an eq position's run byte left
+  in plane 0) against JAX's `encode_stage_chunks(form="bytes")` at N =
+  1000, 1025 and 4100, and the pack's readers of the planes' lens, which
+  take int32 and int64 alike.
 """
 import functools
 
@@ -41,14 +49,32 @@ _M32 = 0xFFFFFFFF
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_stage(has_n_valid: bool, has_last: bool):
+def _jax_stage(has_n_valid: bool, has_last: bool, form: str = "words"):
     """The JAX staging, jitted, with every carry argument given traced."""
     def f(px4, n_valid, prev, run, tbl, wr, last):
         return jpipe.encode_stage_chunks(
             px4, n_valid if has_n_valid else None, prev_in=prev, run_in=run,
             table_in=(tbl, wr), contains_last=last if has_last else None,
-            form="words")
+            form=form)
     return jax.jit(f)
+
+
+def _jax_args(px4, n_valid=None, prev=None, run=None, tbl=None, wr=None,
+              last=None):
+    return (jnp.asarray(px4), jnp.int32(0 if n_valid is None else n_valid),
+            jnp.asarray(_SEED if prev is None else prev),
+            jnp.int32(0 if run is None else run),
+            jnp.asarray(np.zeros(64, np.uint32) if tbl is None else tbl),
+            jnp.asarray(np.zeros(64, bool) if wr is None else wr),
+            jnp.bool_(bool(last)))
+
+
+def _jax_planes(px4, n_valid=None, last=None, **kw):
+    """numpy (staging (6, N), lens, prev_px, run, table, written) of the
+    JAX function's bytes form."""
+    out = _jax_stage(n_valid is not None, last is not None, "bytes")(
+        *_jax_args(px4, n_valid, last=last, **kw))
+    return tuple(np.asarray(x) for x in (out.staging, out.lens, *out.carry))
 
 
 def _jax_words(px4, n_valid=None, prev=None, run=None, tbl=None, wr=None,
@@ -233,11 +259,12 @@ def _word(tag, written, value):
 
 
 def _words_by_design(px4, carry, seed=0):
-    """csrc/encode_stage.cu's words form in Python: px4 (N, 4) uint8 and
-    the wrapper's carry in (`_carry_args`: header, from_dev, carry_in) ->
-    (lo, hi, lens (N,) int64 u32, carry_out (66,) int64, written_out (64,)
-    uint8, the look-back's counts). Blocks start in ticket order, at most
-    6 at a time, and a seeded generator interleaves their steps."""
+    """csrc/encode_stage.cu's words and planes forms in Python: px4 (N, 4)
+    uint8 and the wrapper's carry in (`_carry_args`: header, from_dev,
+    carry_in) -> (lo, hi, lens (N,) int64 u32, carry_out (66,) int64,
+    written_out (64,) uint8, the look-back's counts, planes (6, N) uint8).
+    Blocks start in ticket order, at most 6 at a time, and a seeded
+    generator interleaves their steps."""
     hdr, from_dev, cin = carry
     cin = [0] * 133 if cin is None else [int(x) for x in cin]
     hdr = [cin[k] if from_dev >> k & 1 else hdr[k] for k in range(5)]
@@ -257,6 +284,9 @@ def _words_by_design(px4, carry, seed=0):
     status = {}
     lo, hi, lens = [0] * n, [0] * n, [0] * n
     cout, wr_out = [0] * 66, [0] * 64
+    # the planes' output, flat, and its 16-byte and byte stores
+    planes = np.full(6 * n, -1, np.int64)
+    seen_stores = {"vec": 0, "byte": 0}
     rng = np.random.default_rng(seed)
     seen = {"wait": 0, "slide": 0}
 
@@ -329,6 +359,7 @@ def _words_by_design(px4, carry, seed=0):
         # 3. every pixel against the last literal before the block
         lit_before = carry[64][2] - (1 << 32) * (carry[64][2] >> 31)
         inval = [carry[c][2] for c in range(64)]
+        sp = [[0] * _BLOCK for _ in range(6)]   # the planes' shared rows
         for i in range(min(_BLOCK, n - base)):
             gid, (r, lane) = base + i, divmod(i, _ROW)
             rl = litmask & ((1 << r) - 1)
@@ -379,8 +410,27 @@ def _words_by_design(px4, carry, seed=0):
                     own_len + 1
             else:
                 st, ln_ = rec, own_len
+            # the planes keep an eq position's run byte
+            for b in range(6):
+                sp[b][i] = (st >> 8 * b) & 0xFF if eq[i] else 0
             st &= (1 << 8 * ln_) - 1
             lo[gid], hi[gid], lens[gid] = st & _M32, st >> 32, ln_
+            if not eq[i]:
+                for b in range(6):
+                    sp[b][i] = (st >> 8 * b) & 0xFF
+        # the planes' stores: row b of the block at b * n + base, as
+        # 16-byte chunks where it is aligned and whole, else byte by byte
+        for b in range(6):
+            row = b * n + base
+            if base + _BLOCK <= n and row % 16 == 0:
+                for q in range(0, _BLOCK, 16):
+                    assert row + q + 16 <= (b + 1) * n
+                    planes[row + q: row + q + 16] = sp[b][q: q + 16]
+                seen_stores["vec"] += 1
+            else:
+                for i in range(min(_BLOCK, n - base)):
+                    planes[row + i] = sp[b][i]
+                seen_stores["byte"] += 1
 
     pending, running = list(range(nblk)), []
     while pending or running:
@@ -393,8 +443,11 @@ def _words_by_design(px4, carry, seed=0):
             next(co)
         except StopIteration:
             running.remove(co)
+    assert (planes >= 0).all(), "a plane byte was never stored"
+    seen.update(seen_stores)
     return (np.array(lo), np.array(hi), np.array(lens), np.array(cout),
-            np.array(wr_out, np.uint8), seen)
+            np.array(wr_out, np.uint8), seen,
+            planes.astype(np.uint8).reshape(6, n))
 
 
 def _carry_of(cout, wr):
@@ -410,7 +463,7 @@ def _model_words(px4, n_valid=None, seed=0, **kw):
     carry = kstage._carry_args(px4.shape[0], n_valid, k["prev_in"],
                                k["run_in"], k["table_in"],
                                k["contains_last"], torch.device("cpu"))
-    lo, hi, lens, cout, wr, seen = _words_by_design(px4, carry, seed)
+    lo, hi, lens, cout, wr, seen, _ = _words_by_design(px4, carry, seed)
     return (lo, hi, lens, *_carry_of(cout, wr)), seen
 
 
@@ -455,7 +508,7 @@ def test_design_takes_the_carry_as_tensors(case, from_dev):
         px4.shape[0], as_t(n_valid), k["prev_in"], as_t(k["run_in"]),
         k["table_in"], as_t(k["contains_last"]), torch.device("cpu"))
     assert args[1] == from_dev
-    lo, hi, lens, cout, wr, _ = _words_by_design(px4, args, 1)
+    lo, hi, lens, cout, wr, _, _ = _words_by_design(px4, args, 1)
     _assert_equal((lo, hi, lens, *_carry_of(cout, wr)),
                   _want(case, px4, n_valid, kw))
 
@@ -518,7 +571,7 @@ def test_three_tiles_chained_equal_the_whole_frame(stage):
         args = kstage._carry_args(len(tile), nv, carry.get("prev_in"),
                                   carry.get("run_in"), carry.get("table_in"),
                                   last, torch.device("cpu"))
-        lo, hi, lens, cout, wr, _ = _words_by_design(tile, args, nv)
+        lo, hi, lens, cout, wr, _, _ = _words_by_design(tile, args, nv)
         return (lo, hi, lens, *_carry_of(cout, wr))
 
     recs, carry = _tiles(px4, n, 1024, {"twin": twin, "design": design}[stage])
@@ -562,3 +615,73 @@ def test_wrapper_refuses_bad_shapes():
         with pytest.raises(ValueError, match="outside"):
             kstage.encode_stage_words(torch.zeros((8, 4), dtype=torch.uint8),
                                       bad)
+
+
+# ------------------------------------------------------ the planes form
+
+#: cases of the planes form's model: N = 1000 (one ragged block), 1025
+#: (a ragged second block; rows 1-5 off 16 bytes), with a carry in and
+#: padding past n_valid, and 4100 (one colour across five blocks, a
+#: carry in, not the last tile)
+PLANE_CASES = ["n1000", "n1025", "n_valid_below_n", "run_in_61",
+               "one_colour_blocks"]
+
+
+@pytest.mark.parametrize("case", PLANE_CASES)
+def test_planes_design_matches_jax(case):
+    """The model's planes, lens and carry (through the wrapper's
+    `_carry_args` and `_carry_out`) equal JAX's bytes form; the twin's
+    too."""
+    px4, n_valid, kw = _case(case)
+    want = _jax_planes(px4, n_valid, **kw)
+    k = _port_kwargs(**kw)
+    args = kstage._carry_args(px4.shape[0], n_valid, k["prev_in"],
+                              k["run_in"], k["table_in"],
+                              k["contains_last"], torch.device("cpu"))
+    _, _, lens, cout, wr, seen, planes = _words_by_design(px4, args,
+                                                          len(case))
+    got = (planes, lens, *_carry_of(cout, wr))
+    names = ("staging", "lens", "prev_px", "run", "table", "written")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(as_u32(g), as_u32(w), err_msg=name)
+    twin = kstage.encode_stage_planes(to_torch(px4), n_valid, **k)
+    assert twin.lens.dtype == torch.int32
+    for name, g, w in zip(names, (twin.staging, twin.lens, *twin.carry),
+                          want):
+        np.testing.assert_array_equal(as_u32(g), as_u32(w), err_msg=name)
+    # every eq position keeps a run byte in plane 0, emitted or not
+    assert (planes[0][lens == 0] & 0xC0 == 0xC0).all()
+    if case == "one_colour_blocks":
+        # rows b * 4100 + base are aligned for planes 0 and 4 only
+        assert seen["vec"] == 4 * 2 and seen["byte"] == 4 * 4 + 6
+    if case == "n1025":
+        assert seen["vec"] == 1 and seen["byte"] == 11
+
+
+@pytest.mark.parametrize("densify", ["shift", "sort"])
+def test_pack_readers_take_int32_and_int64_lens(densify):
+    """densify_records, compact_bytes6_pack and compact_bytes6 give the
+    oracle's stream from the planes with the kernel's int32 lens and the
+    plain code's int64 ones."""
+    from qoi_tpu_torch import oracle
+    from qoi_tpu_torch.kernels import pack as kpack
+
+    if not oracle.available():
+        pytest.skip("oracle not built")
+    img = testimages.mixed(64, 128, 4, seed=3)
+    want = oracle.encode(img, fmt.StreamDesc(64, 128, 4))
+    body = want[fmt.HEADER_SIZE: -fmt.TRAILER_SIZE]
+    px4, n = _pad(img, 8192)
+    wide = tpipe.encode_stage_chunks(to_torch(px4), n, form="bytes")
+    narrow = kstage.encode_stage_planes_plain(to_torch(px4), n)
+    assert wide.lens.dtype == torch.int64
+    assert narrow.lens.dtype == torch.int32
+    for ch in (wide, narrow):
+        off_d, lo_d, hi_d, total = kpack.densify_records(ch.staging, ch.lens)
+        buf, tot = kpack.place_records(off_d, lo_d, hi_d, total, 8192 * 6)
+        assert bytes(buf[: int(tot)].numpy()) == body
+        buf, tot = kpack.compact_bytes6_pack(ch.staging, ch.lens, 8192 * 6,
+                                             densify=densify)
+        assert bytes(buf[: int(tot)].numpy()) == body
+        buf, tot = compact.compact_bytes6(ch.staging, ch.lens, 8192 * 6)
+        assert bytes(buf[: int(tot)].numpy()) == body
