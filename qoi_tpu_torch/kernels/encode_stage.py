@@ -18,7 +18,9 @@ JAX `encode_stage_chunks(form="words")` with its tile carries in and
 out, whose run segmentation (a cummax) and table carry (an overwrite
 scan) are `blocked_scan`s in the JAX package (qoi_tpu/ops/scans.py:102),
 in one launch of the same kernel design: any N >= 1, no run cut, the
-incoming carry as a virtual block before block 0.
+incoming carry as a virtual tile before tile 0. Its kernel takes tiles of
+4096 pixels, each thread two lanes of four consecutive pixels (see the
+kernel's header).
 
 Planes form (`encode_stage_planes`, the pack encode's staging): the JAX
 `encode_stage_chunks(form="bytes")` with the same carries, the (6, N)
@@ -36,8 +38,11 @@ from .._bits import to_i32, u32
 from ..models import pipeline
 from . import _build
 
-#: pixels per block, the JAX kernel's default block
+#: pixels per block of the fused form, the JAX kernel's default block
 _BLOCK = 1024
+#: pixels per tile of the words and planes forms (512 threads x 2 lanes
+#: x 4 pixels)
+_TILE = 4096
 #: look-back columns: the 64 slots and the last literal
 _COLS = 65
 
@@ -210,7 +215,7 @@ def _launch_carry_form(name: str, entry: str, px4: torch.Tensor, outs,
                                         table_in, contains_last, dev)
     cout = torch.empty(2 + 64, dtype=torch.int64, device=dev)
     wr = torch.empty(64, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(1 + _COLS * -(-n // _BLOCK), dtype=torch.int64,
+    scratch = torch.empty(1 + _COLS * -(-n // _TILE), dtype=torch.int64,
                           device=dev)
     with torch.cuda.device(dev):
         rc = getattr(_build.lib(), entry)(

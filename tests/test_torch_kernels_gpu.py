@@ -724,6 +724,44 @@ def test_encode_stage_words_carries(dev, run_in, last):
     _words_case(dev, px4, None, contains_last=last)
 
 
+#: the words and planes kernels' 4096-pixel tile: N one short, whole, one
+#: over, three tiles and a ragged fourth
+TILE_EDGES = [4095, 4096, 4097, 3 * 4096 + 1000]
+
+
+def _tile_edge_inputs(n):
+    """(N, 4) pixels of a mixed frame with a run across the first tile's
+    end and one colour at positions 10 and 1287 (warps 0 and 10 of tile
+    0); a carry in with a pending run, prev_in and a table whose
+    unwritten entries are garbage."""
+    img = testimages.mixed(128, 110, 4, seed=n % 11)
+    px4, _ = _px4(img, 128 * 110)
+    px4 = px4[:n].clone()
+    px4[4000:4200] = px4[4000]
+    px4[[10, 1287]] = torch.tensor([1, 2, 3, 255], dtype=torch.uint8)
+    rng = np.random.default_rng(n)
+    tbl = torch.from_numpy(rng.integers(0, 1 << 32, 64, dtype=np.int64))
+    wr = torch.from_numpy(rng.random(64) < 0.5)
+    return px4, dict(prev_in=px4[5].clone(), run_in=23,
+                     table_in=(tbl, wr))
+
+
+@pytest.mark.parametrize("n", TILE_EDGES)
+@pytest.mark.parametrize("last", [False, None])
+def test_encode_stage_words_tile_edges(dev, n, last):
+    """At the tile's edges, with carries in (as values and as card
+    tensors) and the carry out; n_valid N and N - 77."""
+    px4, kw = _tile_edge_inputs(n)
+    px4 = px4.to(dev)
+    for on_card in (False, True):
+        k = {key: _on(dev, v) if on_card else v for key, v in kw.items()}
+        if on_card:
+            k["run_in"] = torch.tensor(kw["run_in"], device=dev)
+        for nv in (n, n - 77):
+            _words_case(dev, px4, nv, contains_last=last, **k)
+    _words_case(dev, px4, None, contains_last=last)
+
+
 def test_encode_stage_words_offset_view(dev):
     """An input view 4 bytes off its buffer's start."""
     px4, n = _px4(testimages.mixed(200, 120, 4, seed=2), 24577)
@@ -836,6 +874,21 @@ def test_encode_stage_planes_carries(dev, run_in, last):
                   contains_last=last)
         _planes_case(dev, px4, n, **kw)
         _planes_case(dev, px4, torch.tensor(n - 77, device=dev), **kw)
+    _planes_case(dev, px4, None, contains_last=last)
+
+
+@pytest.mark.parametrize("n", TILE_EDGES)
+@pytest.mark.parametrize("last", [True, None])
+def test_encode_stage_planes_tile_edges(dev, n, last):
+    """The planes kernel at the tile's edges (4-byte plane stores where N
+    is a multiple of 4, byte stores otherwise), carries in as values and
+    as card tensors, the carry out."""
+    px4, kw = _tile_edge_inputs(n)
+    px4 = px4.to(dev)
+    for on_card in (False, True):
+        k = {key: _on(dev, v) if on_card else v for key, v in kw.items()}
+        for nv in (n, n - 77):
+            _planes_case(dev, px4, nv, contains_last=last, **k)
     _planes_case(dev, px4, None, contains_last=last)
 
 

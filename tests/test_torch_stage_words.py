@@ -10,21 +10,28 @@ every record and every field of the outgoing carry:
 
 - the twin, `encode_stage_words_plain` (and the wrapper's CPU route), on
   small frames of the 4K classes and on the carry cases below;
-- a model of the kernel's design: the wrapper's own carry in, the
-  1024-pixel blocks as coroutines that take tickets in order and run in a
-  seeded interleaving, per-row literal and slot-writer bitmasks, status
-  words (unpublished 0, pass, final with a written bit) read back by
-  groups of 3 lanes, the incoming carry as a virtual block before block
-  0, the outgoing carry from the last block's inclusive prefix (read
-  through the wrapper's `_carry_out`);
+- a model of the kernel's design (csrc/encode_stage.cu's tile_kernel):
+  the wrapper's own carry in, tiles of 32 warps of lanes of four
+  consecutive pixels (the tile's shape a parameter, so that many small
+  tiles can interleave) as coroutines that take tickets in order and run
+  in a seeded interleaving, each lane's literal bits, keys and key bytes,
+  per warp and slot the writer lanes, each warp's last write of a slot
+  and per slot the warps that wrote it, status words (unpublished 0,
+  pass, final with a written bit) read back by groups of 4 lanes, the
+  incoming carry as a virtual tile before tile 0, the run phase walked
+  in registers, the table replay's four steps (the lane's own pixels,
+  the warp's lanes, an earlier warp, the carry) counted, the outgoing
+  carry from the last tile's inclusive prefix (read through the
+  wrapper's `_carry_out`); at the tile's edges (N = 4095, 4096, 4097, three tiles
+  and a ragged fourth) and with a slot written only in an earlier warp;
 - three tiles chained through the carry against the whole frame;
 - the readers of `EncodedWords`, which take the kernel's int32 bit
   patterns and the plain code's int64 alike;
-- the planes form of the same model (a block's six 1024-byte plane rows
-  staged, then stored as 16-byte chunks where the row k * N + base is
-  aligned and whole, else byte by byte; an eq position's run byte left
-  in plane 0) against JAX's `encode_stage_chunks(form="bytes")` at N =
-  1000, 1025 and 4100, and the pack's readers of the planes' lens, which
+- the planes form of the same model (each lane's bytes of each plane
+  stored as 4-byte pieces where N is a multiple of 4, else byte by
+  byte; an eq position's run byte left in plane 0) against JAX's
+  `encode_stage_chunks(form="bytes")` at N = 1000, 1025, 4096, 4100 and
+  3 * 4096 + 1000, and the pack's readers of the planes' lens, which
   take int32 and int64 alike.
 """
 import functools
@@ -202,13 +209,47 @@ def _case(name):
                 dict(prev=_PREV, run=44, tbl=tbl, wr=wr, last=False))
     if name == "mixed_96x64":
         return _pad(mixed(96, 64)) + ({},)
+    # the kernel's 4096-pixel tile: one short, whole, one over; three
+    # tiles and a ragged fourth with carries in and n_valid < N
+    if name == "tile_minus_1":
+        return _pad(mixed(63, 65, 8), 4095) + ({},)
+    if name == "tile":
+        return _pad(mixed(64, 64, 9), 4096) + (dict(last=False),)
+    if name == "tile_plus_1":
+        tbl, wr = _table(13, 0.5)
+        return _pad(mixed(17, 241, 10), 4097) + (
+            dict(prev=_PREV, run=5, tbl=tbl, wr=wr, last=True),)
+    if name == "three_tiles_ragged":
+        tbl, wr = _table(14, 0.7)
+        px, _ = _pad(mixed(88, 151, 11), 3 * 4096 + 1000)
+        px[4000:4200] = px[4000]          # a run across a tile's end
+        return px, 3 * 4096 + 990, dict(prev=_PREV, run=61, tbl=tbl, wr=wr,
+                                         last=False)
+    if name == "earlier_warp_slot":
+        return _earlier_warp_slot(), 4096, dict(last=True)
     raise KeyError(name)
+
+
+def _earlier_warp_slot():
+    """(4096, 4) pixels alternating two colours, each a literal hitting
+    the table, and a third colour whose slot nobody else writes at
+    positions 10 (warp 0) and 1287 (warp 10, lane 1, its last pixel):
+    1287's last earlier writer is in an earlier warp of the tile."""
+    a, b = (10, 20, 30, 255), (200, 100, 50, 255)
+    c = (1, 2, 3, 255)
+    packed = lambda x: int(np.array(x, np.uint8).view(np.uint32)[0])
+    assert len({_hash(packed(x)) for x in (a, b, c)}) == 3
+    px = np.array([a, b] * 2048, np.uint8)
+    px[[10, 1287]] = c
+    return px
 
 
 CASES = ["n256", "n1000", "n1024", "n1025", "n_valid_below_n", "run_in_0",
          "run_in_1", "run_in_61", "run_in_61_literal_first", "not_last",
          "table_in_garbage", "zero_rgba_first", "one_colour_blocks",
-         "n_valid_none_not_last", "n_valid_zero", "mixed_96x64"]
+         "n_valid_none_not_last", "n_valid_zero", "mixed_96x64",
+         "tile_minus_1", "tile", "tile_plus_1", "three_tiles_ragged",
+         "earlier_warp_slot"]
 
 #: small frames of the 4K main path's classes, padded to the facade's
 #: bucket
@@ -230,8 +271,11 @@ def _want(key, px4, n_valid, kw):
 
 # ------------------------------------------------------ the kernel design
 
-_BLOCK, _ROW, _COLS, _GROUP = 1024, 32, 65, 3
+_COLS, _GROUP = 65, 4
 _PASS, _FINAL = 1, 2
+#: the kernel's tile: 32 warps of lanes of 4 consecutive pixels (512
+#: threads, each running two lanes)
+_PX, _WARPS = 4, 32
 
 
 def _hash(p):
@@ -258,71 +302,140 @@ def _word(tag, written, value):
     return (tag, bool(written), value & _M32)
 
 
-def _words_by_design(px4, carry, seed=0):
-    """csrc/encode_stage.cu's words and planes forms in Python: px4 (N, 4)
-    uint8 and the wrapper's carry in (`_carry_args`: header, from_dev,
-    carry_in) -> (lo, hi, lens (N,) int64 u32, carry_out (66,) int64,
-    written_out (64,) uint8, the look-back's counts, planes (6, N) uint8).
-    Blocks start in ticket order, at most 6 at a time, and a seeded
-    generator interleaves their steps."""
+def _record(pk, prev, key, before, eq, flush, emits_run, run_m, prev_m,
+            keep_run):
+    """The kernel's `record`: (lo, hi, len) of one pixel, 0 past len but
+    for an eq position's run byte where keep_run (the planes)."""
+    hit = before == pk
+    d = _vsub4(pk, prev)
+    alpha_same = d >> 24 == 0
+    dd = _vadd4(d, 0x00020202)
+    is_diff = alpha_same and dd & 0x00FCFCFC == 0
+    dl = _vadd4(_vsub4(d, ((d >> 8) & 0xFF) * 0x01010101), 0x00080008)
+    gl = ((d >> 8) + 32) & 0xFF
+    is_luma = (alpha_same and not is_diff and gl < 64
+               and dl & 0x00F000F0 == 0)
+    is_rgb = alpha_same and not is_diff and not is_luma
+    small = hit or is_diff
+    own0 = (key if hit else
+            0x40 | (dd & 3) << 4 | ((dd >> 8) & 3) << 2 | ((dd >> 16) & 3)
+            if is_diff else
+            0x80 | gl if is_luma else 0xFE if is_rgb else 0xFF)
+    own1 = (0 if small else (dl & 0xF) << 4 | ((dl >> 16) & 0xF) if is_luma
+            else pk)
+    olo = (own0 | own1 << 8) & _M32
+    ohi = pk >> 24 if not (small or is_luma or is_rgb) else 0
+    own_len = 1 if small else 2 if is_luma else 4 if is_rgb else 5
+    if eq:
+        return (0xC0 | run_m if emits_run or keep_run else 0), 0, \
+            int(emits_run)
+    if flush:
+        return ((0xC0 | prev_m) | olo << 8) & _M32, ohi << 8 | olo >> 24, \
+            own_len + 1
+    return olo, ohi, own_len
+
+
+def _last_key_byte(kw, key):
+    """The kernel's `last_key_byte`: the last of a thread's key bytes
+    (eight in the kernel) equal to key."""
+    return max(j for j in range(len(kw)) if kw[j] == key)
+
+
+def _words_by_design(px4, carry, seed=0, px=_PX, warps=_WARPS):
+    """csrc/encode_stage.cu's tile_kernel (words and planes forms) in
+    Python: px4 (N, 4) uint8 and the wrapper's carry in (`_carry_args`:
+    header, from_dev, carry_in) -> (lo, hi, lens (N,) int64 u32, carry_out
+    (66,) int64, written_out (64,) uint8, counts, planes (6, N) uint8).
+    Tiles are 32 * warps lanes of `px` consecutive pixels (the kernel's 32
+    warps of 4; a thread of the kernel runs two lanes, which changes no
+    result); they start in ticket order, at most 6 at a time, and a
+    seeded generator interleaves their steps. The counts: the look-back's
+    waits and slides, the planes' px-byte and byte stores a lane, and
+    where the literals found the last earlier writer of their slots
+    (own, lane, warp, carry; "steps": each literal's)."""
     hdr, from_dev, cin = carry
     cin = [0] * 133 if cin is None else [int(x) for x in cin]
     hdr = [cin[k] if from_dev >> k & 1 else hdr[k] for k in range(5)]
     if not from_dev >> 5 & 1:
         cin[5:] = [0] * 128
-    px = [int(x) for x in px4.view(np.uint32).reshape(-1)]
-    n = len(px)
+    pxs = [int(x) for x in px4.view(np.uint32).reshape(-1)]
+    n = len(pxs)
     nv = min(max(hdr[0], 0), n)
     cn = min(max(hdr[1], 0), n)
     run_in, seed_px, last_flag = hdr[2], hdr[3] & _M32, hdr[4]
     last_pos = nv - 1 if last_flag else -1
-    # the virtual block before block 0: final words of the incoming carry
+    nthr = 32 * warps
+    tile_px = nthr * px
+    # the virtual tile before tile 0: final words of the incoming carry
     none = [_word(_FINAL, cin[69 + c] != 0,
                   cin[5 + c] if cin[69 + c] != 0 else 0) for c in range(64)]
     none.append(_word(_FINAL, False, -1 - run_in))
-    nblk = -(-n // _BLOCK)
+    ntile = -(-n // tile_px)
     status = {}
     lo, hi, lens = [0] * n, [0] * n, [0] * n
     cout, wr_out = [0] * 66, [0] * 64
-    # the planes' output, flat, and its 16-byte and byte stores
     planes = np.full(6 * n, -1, np.int64)
-    seen_stores = {"vec": 0, "byte": 0}
     rng = np.random.default_rng(seed)
-    seen = {"wait": 0, "slide": 0}
+    seen = dict.fromkeys(("wait", "slide", "vec", "byte", "own", "lane",
+                          "warp", "carry"), 0)
+    steps = seen["steps"] = {}     # each literal's replay step
 
-    def block(blk):
-        base = blk * _BLOCK
-        p = [px[g] if g < n else 0 for g in range(base, base + _BLOCK)]
-        prev = [seed_px if base == 0 else px[base - 1]] + p[:-1]
-        eq = [p[i] == prev[i] or base + i >= nv for i in range(_BLOCK)]
-        # 1. per row its literal lanes and per slot the lanes that wrote
-        # it; per block the rows that wrote each slot, the rows with a
-        # literal
-        lrow = [sum(1 << ln for ln in range(_ROW) if not eq[r * _ROW + ln])
-                for r in range(_ROW)]
-        lmask = [[0] * 64 for _ in range(_ROW)]
-        for i in range(_BLOCK):
-            if not eq[i]:
-                lmask[i // _ROW][_hash(p[i])] |= 1 << (i % _ROW)
-        wmask = [sum(1 << r for r in range(_ROW) if lmask[r][c])
-                 for c in range(64)]
-        litmask = sum(1 << r for r in range(_ROW) if lrow[r])
+    def tile(blk):
+        base = blk * tile_px
+        # 1. each thread's pixels (0 past N), the pixel before them (the
+        # lane below's last, or a load for lane 0), its literal bits, keys
+        # and key bytes (0xFF for eq); per warp and slot the writer lanes
+        spx = [pxs[g] if g < n else 0 for g in range(base, base + tile_px)]
+        th = []
+        for t in range(nthr):
+            g0 = base + t * px
+            p = spx[t * px: (t + 1) * px]
+            if t % 32:
+                before_t = th[t - 1]["p"][-1]
+            else:
+                before_t = (seed_px if g0 == 0
+                            else pxs[g0 - 1] if g0 <= n else 0)
+            prev = [before_t] + p[:-1]
+            lits = sum(1 << k for k in range(px)
+                       if not (p[k] == prev[k] or g0 + k >= nv))
+            keys = [_hash(x) for x in p]
+            kw = [keys[k] if lits >> k & 1 else 0xFF for k in range(px)]
+            th.append(dict(p=p, before=before_t, lits=lits, keys=keys,
+                           kw=kw, last=g0 + _top(lits) if lits else None))
+        wm = [[0] * 64 for _ in range(warps)]
+        for t, d in enumerate(th):
+            for k in range(px):
+                if d["lits"] >> k & 1:
+                    wm[t // 32][d["keys"][k]] |= 1 << (t % 32)
+        # per warp: its last write of each slot; per slot the warps that
+        # wrote it; a warp's last literal, the warps with a literal
+        wagg = [[None] * 64 for _ in range(warps)]
+        tmask = [0] * 64
+        for w in range(warps):
+            for s in range(64):
+                if wm[w][s]:
+                    t = w * 32 + _top(wm[w][s])
+                    wagg[w][s] = spx[t * px + _last_key_byte(th[t]["kw"], s)]
+                    tmask[s] |= 1 << w
+        wl = [sum(1 << ln for ln in range(32) if th[w * 32 + ln]["lits"])
+              for w in range(warps)]
+        wlast = [th[w * 32 + _top(wl[w])]["last"] if wl[w] else None
+                 for w in range(warps)]
+        litmask = sum(1 << w for w in range(warps) if wl[w])
         yield
         # 2. publish each column's aggregate at once
         own, mask = [], []
         for c in range(_COLS):
-            m = wmask[c] if c < 64 else litmask
+            m = tmask[c] if c < 64 else litmask
             agg = 0
             if m:
-                r = _top(m)
-                agg = (p[r * _ROW + _top(lmask[r][c])] if c < 64
-                       else base + r * _ROW + _top(lrow[r]))
+                agg = wagg[_top(m)][c] if c < 64 else wlast[_top(m)]
             own.append(_word(_FINAL, True, agg))
             mask.append(m)
             status[blk, c] = (own[c] if m else none[c] if blk == 0
                               else _word(_PASS, False, 0))
         yield
-        # ... then look back: a group of 3 lanes reads blocks hi .. hi - 2;
+        # ... then look back: a group of 4 lanes reads tiles hi .. hi - 3;
         # the nearest word that is not a pass word is the carry, or is
         # waited for while unpublished
         carry = list(none)
@@ -347,96 +460,94 @@ def _words_by_design(px4, carry, seed=0):
                 status[blk, c] = carry[c]
             if rng.random() < 0.2:
                 yield
-        if blk == nblk - 1:
-            # the outgoing carry: this block's inclusive prefix
+        if blk == ntile - 1:
+            # the outgoing carry: this tile's inclusive prefix
             for c in range(64):
                 inc = own[c] if mask[c] else carry[c]
                 cout[2 + c], wr_out[c] = inc[2], int(inc[1])
             last_lit = own[64] if mask[64] else carry[64]
             last_lit = last_lit[2] - (1 << 32) * (last_lit[2] >> 31)
             cout[1] = 0 if last_flag == 1 else (cn - 1 - last_lit) % 62
-            cout[0] = px[cn - 1] if cn > 0 else seed_px
-        # 3. every pixel against the last literal before the block
-        lit_before = carry[64][2] - (1 << 32) * (carry[64][2] >> 31)
+            cout[0] = pxs[cn - 1] if cn > 0 else seed_px
+        # 3. each thread's pixels against their predecessors
+        lit_in = carry[64][2] - (1 << 32) * (carry[64][2] >> 31)
         inval = [carry[c][2] for c in range(64)]
-        sp = [[0] * _BLOCK for _ in range(6)]   # the planes' shared rows
-        for i in range(min(_BLOCK, n - base)):
-            gid, (r, lane) = base + i, divmod(i, _ROW)
-            rl = litmask & ((1 << r) - 1)
-            rlit = (base + _top(rl) * _ROW + _top(lrow[_top(rl)]) if rl
-                    else lit_before)
-            le = lrow[r] & ((2 << lane) - 1)
-            lt = lrow[r] & ((1 << lane) - 1)
-            ln = gid - lane + _top(le) if le else rlit
-            lp = gid - lane + _top(lt) if lt else rlit
-            run_pos, prev_run_pos = gid - ln, gid - 1 - lp
-            prev_eq = lp != gid - 1
-            valid = gid < nv
-            emits_run = eq[i] and valid and (run_pos % 62 == 0
-                                              or gid == last_pos)
-            flush = not eq[i] and prev_eq and prev_run_pos % 62 != 0
-            key = _hash(p[i])
-            lw = lmask[r][key] & ((1 << lane) - 1)
-            rw = wmask[key] & ((1 << r) - 1)
-            if lw:
-                before = p[r * _ROW + _top(lw)]
-            elif rw:
-                before = p[_top(rw) * _ROW + _top(lmask[_top(rw)][key])]
-            else:
-                before = inval[key]
-            hit = not eq[i] and before == p[i]
-            d = _vsub4(p[i], prev[i])
-            alpha_same = d >> 24 == 0
-            dd = _vadd4(d, 0x00020202)
-            is_diff = alpha_same and dd & 0x00FCFCFC == 0
-            dl = _vadd4(_vsub4(d, ((d >> 8) & 0xFF) * 0x01010101),
-                        0x00080008)
-            gl = ((d >> 8) + 32) & 0xFF
-            is_luma = (alpha_same and not is_diff and gl < 64
-                       and dl & 0x00F000F0 == 0)
-            is_rgb = alpha_same and not is_diff and not is_luma
-            own0 = (key if hit else
-                    0x40 | (dd & 3) << 4 | ((dd >> 8) & 3) << 2
-                    | ((dd >> 16) & 3) if is_diff else
-                    0x80 | gl if is_luma else 0xFE if is_rgb else 0xFF)
-            own1 = (dl & 0xF) << 4 | ((dl >> 16) & 0xF) if is_luma else p[i]
-            rec = own0 | own1 << 8
-            own_len = (1 if hit or is_diff else 2 if is_luma
-                       else 4 if is_rgb else 5)
-            if eq[i]:
-                st, ln_ = 0xC0 | (run_pos - 1) % 62, int(emits_run)
-            elif flush:
-                st, ln_ = (0xC0 | (prev_run_pos - 1) % 62) | rec << 8, \
-                    own_len + 1
-            else:
-                st, ln_ = rec, own_len
-            # the planes keep an eq position's run byte
-            for b in range(6):
-                sp[b][i] = (st >> 8 * b) & 0xFF if eq[i] else 0
-            st &= (1 << 8 * ln_) - 1
-            lo[gid], hi[gid], lens[gid] = st & _M32, st >> 32, ln_
-            if not eq[i]:
+        for t, d in enumerate(th):
+            w, lane, g0 = t // 32, t % 32, base + t * px
+            if g0 >= n:
+                continue
+            # the last literal before the thread: the lane below's, an
+            # earlier warp's, or the carry
+            lb = wl[w] & ((1 << lane) - 1)
+            rl = litmask & ((1 << w) - 1)
+            lp0 = (th[w * 32 + _top(lb)]["last"] if lb
+                   else wlast[_top(rl)] if rl else lit_in)
+            q, prev_lit = (g0 - 1 - lp0) % 62, lp0 == g0 - 1
+            assert g0 - 1 - lp0 >= 0
+            p, keys, lits = d["p"], d["keys"], d["lits"]
+            recs = []
+            for k in range(px):
+                gid, lit = g0 + k, bool(lits >> k & 1)
+                qn = 0 if lit else (0 if q == 61 else q + 1)
+                run_m = qn - 1 if qn else 61
+                prev_m = q - 1 if q else 61
+                emits_run = not lit and gid < nv and (qn == 0
+                                                      or gid == last_pos)
+                flush = lit and not prev_lit and q != 0
+                q, prev_lit = qn, lit
+                before = 0
+                if lit:
+                    own_j = [j for j in range(k)
+                             if lits >> j & 1 and keys[j] == keys[k]]
+                    lw = wm[w][keys[k]] & ((1 << lane) - 1)
+                    rw = tmask[keys[k]] & ((1 << w) - 1)
+                    if own_j:
+                        before, step = p[own_j[-1]], "own"
+                    elif lw:
+                        l = w * 32 + _top(lw)
+                        before = spx[l * px + _last_key_byte(th[l]["kw"],
+                                                             keys[k])]
+                        step = "lane"
+                    elif rw:
+                        before, step = wagg[_top(rw)][keys[k]], "warp"
+                    else:
+                        before, step = inval[keys[k]], "carry"
+                    seen[step] += 1
+                    steps[gid] = step
+                prev = p[k - 1] if k else d["before"]
+                lo_, hi_, ln_ = _record(p[k], prev, keys[k], before,
+                                        not lit, flush, emits_run, run_m,
+                                        prev_m, False)
+                plo, phi, _ = _record(p[k], prev, keys[k], before, not lit,
+                                      flush, emits_run, run_m, prev_m, True)
+                recs.append((lo_ | hi_ << 32, ln_, plo | phi << 32))
+            # the stores: 16-byte pieces of four pixels where the thread is
+            # whole, else pixel by pixel up to N
+            for k, (st, ln_, _) in enumerate(recs):
+                if g0 + k < n:
+                    lo[g0 + k], hi[g0 + k] = st & _M32, st >> 32
+                    lens[g0 + k] = ln_
+            # the planes: `px` bytes a plane where N is a multiple of px and
+            # the thread whole, else byte by byte up to N
+            if g0 + px <= n and n % px == 0:
                 for b in range(6):
-                    sp[b][i] = (st >> 8 * b) & 0xFF
-        # the planes' stores: row b of the block at b * n + base, as
-        # 16-byte chunks where it is aligned and whole, else byte by byte
-        for b in range(6):
-            row = b * n + base
-            if base + _BLOCK <= n and row % 16 == 0:
-                for q in range(0, _BLOCK, 16):
-                    assert row + q + 16 <= (b + 1) * n
-                    planes[row + q: row + q + 16] = sp[b][q: q + 16]
-                seen_stores["vec"] += 1
+                    row = b * n + g0
+                    assert row % px == 0 and row + px <= (b + 1) * n
+                    planes[row: row + px] = [(pst >> 8 * b) & 0xFF
+                                             for _, _, pst in recs]
+                seen["vec"] += 1
             else:
-                for i in range(min(_BLOCK, n - base)):
-                    planes[row + i] = sp[b][i]
-                seen_stores["byte"] += 1
+                for b in range(6):
+                    for k, (_, _, pst) in enumerate(recs):
+                        if g0 + k < n:
+                            planes[b * n + g0 + k] = (pst >> 8 * b) & 0xFF
+                seen["byte"] += 1
 
-    pending, running = list(range(nblk)), []
+    pending, running = list(range(ntile)), []
     while pending or running:
         if pending and len(running) < 6 and (not running
                                              or rng.random() < 0.3):
-            running.append(block(pending.pop(0)))
+            running.append(tile(pending.pop(0)))
             continue
         co = running[int(rng.integers(len(running)))]
         try:
@@ -444,7 +555,6 @@ def _words_by_design(px4, carry, seed=0):
         except StopIteration:
             running.remove(co)
     assert (planes >= 0).all(), "a plane byte was never stored"
-    seen.update(seen_stores)
     return (np.array(lo), np.array(hi), np.array(lens), np.array(cout),
             np.array(wr_out, np.uint8), seen,
             planes.astype(np.uint8).reshape(6, n))
@@ -455,15 +565,16 @@ def _carry_of(cout, wr):
     return kstage._carry_out(torch.from_numpy(cout), torch.from_numpy(wr))
 
 
-def _model_words(px4, n_valid=None, seed=0, **kw):
+def _model_words(px4, n_valid=None, seed=0, tile=(_PX, _WARPS), **kw):
     """The design model through the wrapper's carry_in and _carry_out:
-    (lo, hi, lens, prev_px, run, table, written), and the look-back
-    counts."""
+    (lo, hi, lens, prev_px, run, table, written), and the model's counts;
+    `tile` is (pixels a thread, warps a tile)."""
     k = _port_kwargs(**kw)
     carry = kstage._carry_args(px4.shape[0], n_valid, k["prev_in"],
                                k["run_in"], k["table_in"],
                                k["contains_last"], torch.device("cpu"))
-    lo, hi, lens, cout, wr, seen, _ = _words_by_design(px4, carry, seed)
+    lo, hi, lens, cout, wr, seen, _ = _words_by_design(px4, carry, seed,
+                                                       *tile)
     return (lo, hi, lens, *_carry_of(cout, wr)), seen
 
 
@@ -515,17 +626,48 @@ def test_design_takes_the_carry_as_tensors(case, from_dev):
 
 def test_design_interleavings_wait_and_slide():
     """On the one-colour frame every column but the colour's slot walks
-    back to the virtual block: in some seeded interleavings a group
-    waits for an unpublished word, and looks back past 3 blocks."""
+    back to the virtual tile: at a small tile (2 warps of 4 pixels a
+    thread, 256 pixels; 17 tiles), in some seeded interleavings a group
+    waits for an unpublished word, and looks back past 4 tiles."""
     px4, n_valid, kw = _case("one_colour_blocks")
     want = _want("one_colour_blocks", px4, n_valid, kw)
     total = {"wait": 0, "slide": 0}
     for seed in range(3):
-        got, seen = _model_words(px4, n_valid, seed=seed, **kw)
+        got, seen = _model_words(px4, n_valid, seed=seed, tile=(4, 2), **kw)
         _assert_equal(got, want)
         for k in total:
             total[k] += seen[k]
     assert total["wait"] > 0 and total["slide"] > 0, total
+
+
+@pytest.mark.parametrize("case,tile", [("mixed_96x64", (4, 2)),
+                                       ("three_tiles_ragged", (2, 4)),
+                                       ("table_in_garbage", (8, 1))])
+def test_design_at_small_tiles(case, tile):
+    """The same design at other tile shapes (pixels a thread, warps):
+    many tiles in a seeded interleaving, each replay step reached."""
+    px4, n_valid, kw = _case(case)
+    got, seen = _model_words(px4, n_valid, seed=7, tile=tile, **kw)
+    _assert_equal(got, _want(case, px4, n_valid, kw))
+    assert min(seen[k] for k in ("own", "lane", "carry")) > 0, seen
+    if tile[1] > 1:
+        assert seen["warp"] > 0, seen
+
+
+def test_design_reaches_an_earlier_warp():
+    """A slot written only in warp 0 of the tile and read in warp 10 (lane
+    1) is found by the warp step -- the earlier warps' slot bitmask and
+    that warp's last write -- not by the look-back, and hits."""
+    px4, n_valid, kw = _case("earlier_warp_slot")
+    got, seen = _model_words(px4, n_valid, **kw)
+    want = _want("earlier_warp_slot", px4, n_valid, kw)
+    _assert_equal(got, want)
+    assert seen["steps"][1287] == "warp"
+    # the first writes of the three slots reach the carry; lane 0 of
+    # warps 1-31 finds the two colours' slots in the warp before
+    assert seen["carry"] == 3 and seen["warp"] == 1 + 31 * 2, seen
+    assert as_u32(want[0])[1287] == _hash(
+        int(px4[1287].view(np.uint32)[0]))     # an INDEX record: a hit
 
 
 def test_twin_dtypes():
@@ -619,12 +761,12 @@ def test_wrapper_refuses_bad_shapes():
 
 # ------------------------------------------------------ the planes form
 
-#: cases of the planes form's model: N = 1000 (one ragged block), 1025
-#: (a ragged second block; rows 1-5 off 16 bytes), with a carry in and
-#: padding past n_valid, and 4100 (one colour across five blocks, a
-#: carry in, not the last tile)
+#: cases of the planes form's model: N = 1000 (a ragged tile), 1025
+#: (N not a multiple of 4: byte stores), with a carry in and padding past
+#: n_valid, 4100 (one colour, a carry in, not the last tile), 4096 (one
+#: whole tile, 4-byte stores) and 3 * 4096 + 1000 (four tiles, carries)
 PLANE_CASES = ["n1000", "n1025", "n_valid_below_n", "run_in_61",
-               "one_colour_blocks"]
+               "one_colour_blocks", "tile", "three_tiles_ragged"]
 
 
 @pytest.mark.parametrize("case", PLANE_CASES)
@@ -651,11 +793,12 @@ def test_planes_design_matches_jax(case):
         np.testing.assert_array_equal(as_u32(g), as_u32(w), err_msg=name)
     # every eq position keeps a run byte in plane 0, emitted or not
     assert (planes[0][lens == 0] & 0xC0 == 0xC0).all()
-    if case == "one_colour_blocks":
-        # rows b * 4100 + base are aligned for planes 0 and 4 only
-        assert seen["vec"] == 4 * 2 and seen["byte"] == 4 * 4 + 6
-    if case == "n1025":
-        assert seen["vec"] == 1 and seen["byte"] == 11
+    # a lane stores 4 bytes a plane where N is a multiple of 4, else byte
+    # by byte
+    n = px4.shape[0]
+    lanes = -(-n // 4)
+    assert (seen["vec"], seen["byte"]) == (
+        (lanes, 0) if n % 4 == 0 else (0, lanes)), seen
 
 
 @pytest.mark.parametrize("densify", ["shift", "sort"])
