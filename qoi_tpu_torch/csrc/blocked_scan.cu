@@ -26,12 +26,8 @@
 //                     (qoi_tpu/models/decode_v2.py:146, _resolve_scan
 //                     :107-147): rflag and val, (4, M) uint8 channel-major,
 //                     -> the (4, M) uint8 px after every byte with the seed
-//                     epilogue of :147. A position's state is its four
-//                     channels' value bytes and reset bytes (0xFF where
-//                     set), combined byte-wise: a SWAR add without carries
-//                     between bytes, selected by the later reset mask;
-//                     a thread's 16 positions come in as four 16-byte
-//                     rows of each input, transposed 4x4 bytes at a time.
+//                     epilogue of :147; a kernel of its own,
+//                     resolve_kernel (below).
 // The maps are integers, so any grouping of an associative combine gives
 // the same bits as JAX's scan. Element 0's map is its leaf unchanged and
 // no identity of a combine is assumed (_initial_comb has none for
@@ -73,25 +69,50 @@
 //      16-byte store instruction fills whole 32-byte sectors. A ragged
 //      last tile (or a row that starts off 16 bytes) stores element by
 //      element.
-// The resolve scan stages its eight input rows in 64.3 KB of dynamic
-// shared memory and reads them again for the apply (fewer registers live
-// across the look-back); its status word is flag << 62 | the four reset
-// bits << 32 | the four value bytes.
 // Tiles of 512 threads: 32 bytes a thread for the FSM and 16 leaves for
 // anch (few, long tiles: the look-back costs a tile one to a few round
 // trips to L2 while the block waits), 16 bytes for the bytes form and 8
-// leaves for the leaf form (their registers), 16 positions for the
-// resolve scan; 57-64 registers, no spills (the resolve scan: 20 bytes),
-// 16.3-32.3 KB of shared memory (the resolve scan 64.3 KB), two blocks an
-// SM.
+// leaves for the leaf form (their registers); 57-64 registers, no spills,
+// 16.3-32.3 KB of shared memory, two blocks an SM.
+//
+// resolve_kernel, v2's scan, keeps the ticket, the status words and the
+// look-back (step 5, the same code on its own state) but stages nothing:
+// a tile is 256 threads x two lanes of 16 positions, 4096 positions
+// apart (8192), two blocks an SM, 124 registers and 144 bytes of shared
+// memory (the warp totals).
+//   1. loads: in a whole tile whose eight rows (rflag's four channels,
+//      then val's) and the output start on 16 bytes, each lane's 16
+//      positions of each row are one 16-byte non-caching load, a warp's
+//      512 contiguous bytes, all sixteen issued before the first is used;
+//      else (a ragged last tile, M % 16 != 0, a view at an offset) the
+//      16-byte chunks that hold them, a whole chunk by one load and the
+//      row's edge chunks byte by byte, joined by a funnel shift;
+//   2. one transpose: the values 4x4 bytes at a time into 16 words
+//      (position k's four channels), the flags into 4 bits a position,
+//      two words (byte c bit i: channel c at position 8h + i; a nonzero
+//      flag byte is set, as JAX's maximum and rb != 0 read it);
+//   3. fold and apply over the same registers: a state is four value
+//      bytes and four reset bytes; b after a is the byte-wise sum of
+//      a & ~mask(b) and b (seven bits added, the top bit by exclusive
+//      or), the mask from the flag bits by prmt's sign mode. The apply
+//      starts from the seed (0, 0, 0, 255) as a state that resets every
+//      channel, so each inclusive state's values are the px;
+//   4. stores: the px back to the four channel rows by the same
+//      transpose, 16-byte streaming stores, a warp's 512 contiguous bytes
+//      a row (byte by byte where a row is not on 16 bytes or past M).
+// Its status word is flag << 62 | the four reset bits << 32 | the four
+// values.
 //
 // Bound on the H100: bytes. Each input read once, each output written
 // once; at the 4K mixed stream's M = 14,680,064 and 3.35 TB/s: fsm_scan
 // 5 B an element (0.022 ms), fsm_starts 3 B (0.013), initial_scan 20 B
 // (0.088), initial_w 18 B (0.079), anch_scan 8 B (0.035); resolve_scan
-// 12 B a byte of the stream (8 read, 4 written). The folds are 20-60
-// integer operations an element, so at 64 integer lanes an SM the FSM and
-// bytes forms are bound by issue nearly as much as by bytes.
+// 12 B a position (8 read, 4 written; 0.0601 ms at the 4K photo stream's
+// M = 16,777,216). The folds are 20-60 integer operations an element, so
+// at 64 integer lanes an SM the FSM and bytes forms are bound by issue
+// nearly as much as by bytes; the resolve scan takes ~30 (the flag bits,
+// the transposes, a fold and an apply of ~7 each), about half its bytes'
+// time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,7 +123,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Kind { kFsmMaps = 0, kFsmStarts = 1, kInitLeaf = 2, kInitBytes = 3,
-            kAnch = 4, kResolve = 5 };
+            kAnch = 4 };
 
 // status word flags: 0 not yet published
 constexpr unsigned kAgg = 1u, kInc = 2u;
@@ -121,11 +142,11 @@ constexpr uint32_t kSeedPx = 0xFF000000u;
 template <int K>
 struct Geo {
   static constexpr bool bytes = K == kFsmMaps || K == kFsmStarts ||
-                                K == kInitBytes || K == kResolve;
+                                K == kInitBytes;
   static constexpr bool sum = K == kInitLeaf || K == kInitBytes;
   // elements a thread: 32 FSM bytes and 16 anch leaves (fewer tiles, and
   // so fewer look-backs, for the light folds); 16 bytes for the bytes
-  // form and the resolve scan, 8 initial leaves with their npix
+  // form, 8 initial leaves with their npix
   static constexpr int items = K == kInitLeaf ? 8
                                : (K == kFsmMaps || K == kFsmStarts) ? 32
                                                                     : 16;
@@ -134,19 +155,15 @@ struct Geo {
   // staged 16-byte chunks of an input: the tile's, and two for the halo
   // and the shift of an unaligned input
   static constexpr int chunks = kThreads * items * esz / 16 + 2;
-  // input rows: the resolve scan's four channels of rflag and of val
-  static constexpr int inputs = K == kResolve ? 8 : sum ? 2 : 1;
+  static constexpr int inputs = sum ? 2 : 1;
   // the staging area, reused as 64 chunks a warp for the stores
   static constexpr int smem = inputs * chunks > kWarps * 64
                                   ? inputs * chunks : kWarps * 64;
-  // past 48 KB it is dynamic shared memory
-  static constexpr bool dyn = smem * 16 > 48 * 1024;
 };
 
 struct V {
   uint32_t p;
-  unsigned long long s;   // the npix sum (initial forms), the reset bytes
-                          // (resolve)
+  unsigned long long s;   // the npix sum (initial forms)
 };
 
 struct Args {
@@ -189,45 +206,13 @@ __device__ __forceinline__ uint32_t anch_comb(uint32_t p1, uint32_t p2) {
   return (p1 & g2) | (((g2 * (p1 >> 1) + (p2 >> 1)) & 63u) << 1);
 }
 
-// v2's reset-or-add on four channels at once: where the later reset byte
-// m2 is set its value, else the sum mod 256
-__device__ __forceinline__ uint32_t resolve_comb(uint32_t v1, uint32_t v2,
-                                                 uint32_t m2) {
-  return (v2 & m2) | (__vadd4(v1, v2) & ~m2);
-}
-
-// the reset bytes (each 0 or 0xFF) as four bits, and back
-__device__ __forceinline__ uint32_t mask_bits(uint32_t m) {
-  return ((m & 0x01010101u) * 0x01020408u) >> 24;
-}
-
-__device__ __forceinline__ uint32_t mask_bytes(uint32_t b) {
-  return ((b * 0x00204081u) & 0x01010101u) * 0xFFu;
-}
-
-// the 4x4 byte transpose: o[k] byte c = x[c] byte k (its own inverse)
-__device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
-                                           uint32_t x2, uint32_t x3,
-                                           uint32_t* o) {
-  const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
-  const uint32_t t1 = __byte_perm(x2, x3, 0x5140);
-  const uint32_t t2 = __byte_perm(x0, x1, 0x7362);
-  const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
-  o[0] = __byte_perm(t0, t1, 0x5410);
-  o[1] = __byte_perm(t0, t1, 0x7632);
-  o[2] = __byte_perm(t2, t3, 0x5410);
-  o[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 template <int K>
 __device__ __forceinline__ V comb(const V& a, const V& b) {
   V r;
   if constexpr (K == kFsmMaps || K == kFsmStarts) r.p = fsm_comb(a.p, b.p);
   else if constexpr (K == kAnch) r.p = anch_comb(a.p, b.p);
-  else if constexpr (K == kResolve)
-    r.p = resolve_comb(a.p, b.p, static_cast<uint32_t>(b.s));
   else r.p = initial_comb(a.p, b.p);
-  r.s = Geo<K>::sum ? a.s + b.s : K == kResolve ? (a.s | b.s) : 0ull;
+  r.s = Geo<K>::sum ? a.s + b.s : 0ull;
   return r;
 }
 
@@ -235,8 +220,6 @@ template <int K>
 __device__ __forceinline__ V shfl_up(const V& v, int d) {
   V r{__shfl_up_sync(kFull, v.p, d), 0ull};
   if constexpr (Geo<K>::sum) r.s = __shfl_up_sync(kFull, v.s, d);
-  if constexpr (K == kResolve)
-    r.s = __shfl_up_sync(kFull, static_cast<uint32_t>(v.s), d);
   return r;
 }
 
@@ -244,8 +227,6 @@ template <int K>
 __device__ __forceinline__ V shfl_down(const V& v, int d) {
   V r{__shfl_down_sync(kFull, v.p, d), 0ull};
   if constexpr (Geo<K>::sum) r.s = __shfl_down_sync(kFull, v.s, d);
-  if constexpr (K == kResolve)
-    r.s = __shfl_down_sync(kFull, static_cast<uint32_t>(v.s), d);
   return r;
 }
 
@@ -253,8 +234,6 @@ template <int K>
 __device__ __forceinline__ V shfl_idx(const V& v, int src) {
   V r{__shfl_sync(kFull, v.p, src), 0ull};
   if constexpr (Geo<K>::sum) r.s = __shfl_sync(kFull, v.s, src);
-  if constexpr (K == kResolve)
-    r.s = __shfl_sync(kFull, static_cast<uint32_t>(v.s), src);
   return r;
 }
 
@@ -357,17 +336,12 @@ __device__ __forceinline__ uint32_t chunk_op(uint32_t x, uint32_t lit,
 }
 
 // status word: flag << 32 | map; the bytes form: flag << 62 | map << 40 |
-// the 40-bit sum; the resolve scan: flag << 62 | reset bits << 32 |
-// values; the leaf form's sum in sums[2 * at + (flag == kInc)]
+// the 40-bit sum; the leaf form's sum in sums[2 * at + (flag == kInc)]
 template <int K>
 __device__ __forceinline__ void publish(const Args& a, long long at,
                                         unsigned flag, const V& v) {
   unsigned long long word;
-  if constexpr (K == kResolve) {
-    word = (static_cast<unsigned long long>(flag) << 62) |
-           (static_cast<unsigned long long>(
-                mask_bits(static_cast<uint32_t>(v.s))) << 32) | v.p;
-  } else if constexpr (K == kInitBytes) {
+  if constexpr (K == kInitBytes) {
     word = (static_cast<unsigned long long>(flag) << 62) |
            (static_cast<unsigned long long>(v.p) << 40) | (v.s & kSum40);
   } else {
@@ -385,11 +359,7 @@ __device__ __forceinline__ void publish(const Args& a, long long at,
 // sum is read from its own slot by the caller.
 template <int K>
 __device__ __forceinline__ unsigned unpack(unsigned long long word, V& v) {
-  if constexpr (K == kResolve) {
-    v.p = static_cast<uint32_t>(word);
-    v.s = mask_bytes(static_cast<uint32_t>(word >> 32) & 0xFu);
-    return static_cast<unsigned>(word >> 62);
-  } else if constexpr (K == kInitBytes) {
+  if constexpr (K == kInitBytes) {
     v.p = static_cast<uint32_t>(word >> 40) & 0x3FFFFFu;
     v.s = word & kSum40;
     return static_cast<unsigned>(word >> 62);
@@ -400,17 +370,49 @@ __device__ __forceinline__ unsigned unpack(unsigned long long word, V& v) {
   }
 }
 
-// lanes 0..last hold the maps of tiles hi, hi - 1, ..., hi - last: their
-// fold, earliest first, on every lane
+// The look-back's view of an entry's status words: the state S, a word's
+// flag and state (read), the combine (join) and the warp shuffles; the
+// one-pass entries' (OnePass<K>) and the resolve scan's (Resolve, below)
 template <int K>
-__device__ __forceinline__ V fold_back(V x, int last) {
+struct OnePass {
+  using S = V;
+  static __device__ __forceinline__ unsigned read(const Args& a, long long at,
+                                                  V& v) {
+    const unsigned flag = unpack<K>(
+        *reinterpret_cast<const volatile unsigned long long*>(a.status + at),
+        v);
+    if constexpr (K == kInitLeaf) {
+      if (flag != 0u) {
+        __threadfence();
+        v.s = *reinterpret_cast<const volatile unsigned long long*>(
+            a.sums + 2 * at + (flag == kInc));
+      }
+    }
+    return flag;
+  }
+  static __device__ __forceinline__ V join(const V& x, const V& y) {
+    return comb<K>(x, y);
+  }
+  static __device__ __forceinline__ V down(const V& x, int d) {
+    return shfl_down<K>(x, d);
+  }
+  static __device__ __forceinline__ V from(const V& x, int src) {
+    return shfl_idx<K>(x, src);
+  }
+};
+
+// lanes 0..last hold the states of tiles hi, hi - 1, ..., hi - last: their
+// fold, earliest first, on every lane
+template <class L>
+__device__ __forceinline__ typename L::S fold_back(typename L::S x,
+                                                   int last) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const V y = shfl_down<K>(x, d);
-    if (lane + d <= last) x = comb<K>(y, x);
+    const typename L::S y = L::down(x, d);
+    if (lane + d <= last) x = L::join(y, x);
   }
-  return shfl_idx<K>(x, 0);
+  return L::from(x, 0);
 }
 
 // One warp: the exclusive prefix of tile j > 0 of the row whose tile 0
@@ -418,27 +420,19 @@ __device__ __forceinline__ V fold_back(V x, int last) {
 // its first inclusive word, waits while a word before that is
 // unpublished, and slides back 32 tiles while all its words are
 // aggregates.
-template <int K>
-__device__ V look_back(const Args& a, long long at0, long long j) {
+template <class L>
+__device__ typename L::S look_back(const Args& a, long long at0,
+                                   long long j) {
+  using S = typename L::S;
   const int lane = threadIdx.x & 31;
   long long hi = j - 1;
-  V acc{0u, 0ull};
+  S acc{};
   bool have = false;
   while (true) {
     const long long jj = hi - lane;
-    V v{0u, 0ull};
+    S v{};
     unsigned flag = kInc;   // before tile 0, which is inclusive: not reached
-    if (jj >= 0) {
-      flag = unpack<K>(*reinterpret_cast<const volatile unsigned long long*>(
-                           a.status + at0 + jj), v);
-      if constexpr (K == kInitLeaf) {
-        if (flag != 0u) {
-          __threadfence();
-          v.s = *reinterpret_cast<const volatile unsigned long long*>(
-              a.sums + 2 * (at0 + jj) + (flag == kInc));
-        }
-      }
-    }
+    if (jj >= 0) flag = L::read(a, at0 + jj, v);
     const unsigned stop = __ballot_sync(kFull, flag != kAgg);
     if (stop != 0u) {
       const int first = __ffs(stop) - 1;
@@ -446,11 +440,11 @@ __device__ V look_back(const Args& a, long long at0, long long j) {
         __nanosleep(32);
         continue;
       }
-      const V w = fold_back<K>(v, first);
-      return have ? comb<K>(w, acc) : w;
+      const S w = fold_back<L>(v, first);
+      return have ? L::join(w, acc) : w;
     }
-    const V w = fold_back<K>(v, 31);
-    acc = have ? comb<K>(w, acc) : w;
+    const S w = fold_back<L>(v, 31);
+    acc = have ? L::join(w, acc) : w;
     have = true;
     hi -= 32;
   }
@@ -519,12 +513,6 @@ __device__ __forceinline__ void put32(uint4* wb, const uint32_t* u,
   }
 }
 
-// row r of the resolve scan's inputs: channel r of rflag (r < 4), then
-// channel r - 4 of val
-__device__ __forceinline__ const uint8_t* resolve_row(const Args& a, int r) {
-  return (r < 4 ? a.in0 : a.in1) + static_cast<long long>(r & 3) * a.len;
-}
-
 // the tile of ticket tk: its row, its index in the row
 struct Tile {
   long long row, j;
@@ -541,41 +529,9 @@ __device__ void stage_tile(const Args& a, uint4* sm, long long tk) {
   using G = Geo<K>;
   const Tile tl = tile_of(a, tk);
   const long long off = tl.j * G::tile * G::esz, nb = a.len * G::esz;
-  if constexpr (K == kResolve) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      stage(sm + r * G::chunks, resolve_row(a, r), off, nb, G::chunks);
-  } else {
-    stage(sm, a.in0 + tl.row * nb, off, nb, G::chunks);
-    if constexpr (G::inputs == 2)
-      stage(sm + G::chunks, a.in1 + tl.row * nb, off, nb, G::chunks);
-  }
-}
-
-// The resolve scan's leaves of the thread whose 16 positions start at
-// byte `lead` of staged chunk c0 of each row: values v (a byte a
-// channel) and reset masks m (0xFF where the channel resets)
-__device__ __forceinline__ void resolve_leaves(const Args& a,
-                                               const uint4* sm, int c0,
-                                               uint32_t* v, uint32_t* m) {
-  constexpr int NCH = Geo<kResolve>::chunks;
-  // one input at a time: its four channel rows, then their transpose
-#pragma unroll
-  for (int in = 0; in < 2; ++in) {
-    uint32_t w[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int r = 4 * in + c;
-      const int lead = static_cast<int>(
-          reinterpret_cast<uintptr_t>(resolve_row(a, r)) & 15u);
-      extract<4>(sm + r * NCH, c0, lead, w[c]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      transpose4(w[0][q], w[1][q], w[2][q], w[3][q], (in ? v : m) + 4 * q);
-  }
-#pragma unroll
-  for (int k = 0; k < 16; ++k) m[k] = __vcmpne4(m[k], 0u);
+  stage(sm, a.in0 + tl.row * nb, off, nb, G::chunks);
+  if constexpr (G::inputs == 2)
+    stage(sm + G::chunks, a.in1 + tl.row * nb, off, nb, G::chunks);
 }
 
 // Element k of a leaf form's thread: its leaf and (initial) its npix,
@@ -610,10 +566,8 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
 
   // -- 3. the thread's elements, folded once
   uint32_t d[16];   // the bytes (+ 4 in the bytes form; the FSM's chunk
-                    // lengths - 1 in their place), or the leaves (resolve:
-                    // their values)
-  uint32_t op[16];  // bytes form: each byte's op; leaf form: npix;
-                    // resolve: the reset masks
+                    // lengths - 1 in their place), or the leaves
+  uint32_t op[16];  // bytes form: each byte's op; leaf form: npix
   V x{0u, 0ull};
   if constexpr (K == kFsmMaps || K == kFsmStarts) {
     extract<IT / 4>(sm, c0, lead0, d);
@@ -648,11 +602,6 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
     }
     x.p = ra | (g << 1) | (tt << 2) | ((ee & 63u) << 8) | (va << 14);
     x.s = ns;
-  } else if constexpr (K == kResolve) {
-    resolve_leaves(a, sm, c0, d, op);
-    x = V{d[0], op[0]};
-#pragma unroll
-    for (int k = 1; k < IT; ++k) x = comb<K>(x, V{d[k], op[k]});
   } else {
     extract<IT>(sm, c0, lead0, d);
     if constexpr (K == kInitLeaf) {
@@ -676,7 +625,7 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
       if (lane == 0) publish<K>(a, at0, kInc, agg);
     } else {
       if (lane == 0) publish<K>(a, at0 + j, kAgg, agg);
-      const V ex = look_back<K>(a, at0, j);
+      const V ex = look_back<OnePass<K>>(a, at0, j);
       if (lane == 0) {
         publish<K>(a, at0 + j, kInc, comb<K>(ex, agg));
         *tile_pre = ex;
@@ -767,38 +716,6 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
       put32(wb, uw, a.out0, e + 4 * r, a.len, 8, IT, full);
       put32(wb, uo, a.out1, e + 4 * r, a.len, 8, IT, full);
     }
-  } else if constexpr (K == kResolve) {
-    // the leaves again from shared memory, each inclusive state with the
-    // seed added where no reset came, back to the four channel rows
-    resolve_leaves(a, sm, c0, d, op);
-    V acc = pre;
-    uint32_t o[16];
-#pragma unroll
-    for (int k = 0; k < IT; ++k) {
-      const V v{d[k], op[k]};
-      acc = (has || k > 0) ? comb<K>(acc, v) : v;
-      o[k] = resolve_comb(kSeedPx, acc.p, static_cast<uint32_t>(acc.s));
-    }
-    uint32_t w[4][4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t c4[4];
-      transpose4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3], c4);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w[c][q] = c4[c];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint8_t* dst = a.out0 + static_cast<long long>(c) * a.len + e;
-      if (e + IT <= a.len && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0u) {
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(w[c][0], w[c][1], w[c][2], w[c][3]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < IT; ++k)
-          if (e + k < a.len) dst[k] = static_cast<uint8_t>(byte_at(w[c], k));
-      }
-    }
   } else {
     // the maps: every inclusive one, from the thread's prefix
     const bool vec = full && ((row0 * 4) & 15) == 0;
@@ -828,9 +745,7 @@ __device__ void process(const Args& a, uint4* sm, long long tk, V* wt,
 template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
 one_pass_kernel(Args a) {
-  extern __shared__ uint4 dyn_sm[];
-  __shared__ uint4 fixed_sm[Geo<K>::dyn ? 1 : Geo<K>::smem];
-  uint4* sm = Geo<K>::dyn ? dyn_sm : fixed_sm;
+  __shared__ uint4 sm[Geo<K>::smem];
   __shared__ V wt[kWarps];
   __shared__ V tile_pre;
   __shared__ long long tk_s;
@@ -858,17 +773,376 @@ int run(Args a, long long rows, void* scratch, void* stream) {
   a.sums = a.status + tiles;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t words = 1 + tiles * (K == kInitLeaf ? 3 : 1);
-  const size_t dyn = Geo<K>::dyn ? Geo<K>::smem * sizeof(uint4) : 0;
-  cudaError_t e;
-  if (dyn) {
-    e = cudaFuncSetAttribute(one_pass_kernel<K>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dyn));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  e = cudaMemsetAsync(scratch, 0, words * 8, st);
+  const cudaError_t e = cudaMemsetAsync(scratch, 0, words * 8, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  one_pass_kernel<K><<<static_cast<unsigned>(tiles), kThreads, dyn, st>>>(a);
+  one_pass_kernel<K><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ resolve scan
+//
+// v2's reset-or-add scan, a kernel of its own (the header's design): the
+// eight input rows go from global memory straight into registers, each
+// input is transposed once, and shared memory holds only the warp totals.
+
+// The geometry: 256 threads a block, two 16-position lanes a thread, two
+// blocks an SM (up to 128 registers)
+constexpr int kRThreads = 256;
+constexpr int kRLanes = 2;
+constexpr int kRBlocks = 2;
+constexpr int kRWarps = kRThreads / 32;
+constexpr int kRGroups = kRLanes * kRWarps;   // warps of lanes a tile
+constexpr int kRTile = kRThreads * kRLanes * 16;
+static_assert(kRThreads % 32 == 0 && kRGroups <= 32 && kRBlocks >= 1,
+              "resolve scan geometry");
+
+// v2's reset-or-add on four channels at once: where the later reset byte
+// m2 is set its value, else the sum mod 256; that is the byte-wise sum of
+// v1 & ~m2 and v2 (the low seven bits of each byte added, the top bits by
+// an exclusive or: no carry between bytes)
+__device__ __forceinline__ uint32_t resolve_comb(uint32_t v1, uint32_t v2,
+                                                 uint32_t m2) {
+  const uint32_t a = v1 & ~m2;
+  return ((a & 0x7F7F7F7Fu) + (v2 & 0x7F7F7F7Fu)) ^
+         ((a ^ v2) & 0x80808080u);
+}
+
+// each byte of x replaced by its top bit, replicated (prmt's sign mode)
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %1, 0xBA98;" : "=r"(r) : "r"(x));
+  return r;
+}
+
+// bit 0 of each byte of x: set where the byte is not 0
+__device__ __forceinline__ uint32_t nz_bits(uint32_t x) {
+  return ((x | ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu)) >> 7) & 0x01010101u;
+}
+
+// the reset bytes (each 0 or 0xFF) as four bits, and back
+__device__ __forceinline__ uint32_t mask_bits(uint32_t m) {
+  return ((m & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t mask_bytes(uint32_t b) {
+  return ((b * 0x00204081u) & 0x01010101u) * 0xFFu;
+}
+
+// the 4x4 byte transpose: o[k] byte c = x[c] byte k (its own inverse)
+__device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1,
+                                           uint32_t x2, uint32_t x3,
+                                           uint32_t* o) {
+  const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
+  const uint32_t t1 = __byte_perm(x2, x3, 0x5140);
+  const uint32_t t2 = __byte_perm(x0, x1, 0x7362);
+  const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& x, int q) {
+  return q == 0 ? x.x : q == 1 ? x.y : q == 2 ? x.z : x.w;
+}
+
+// The reset flags of a lane's 16 positions, 4 bits a position: fb[h]
+// byte c bit i set where channel c's flag byte at position 8h + i is not
+// 0. Channel c's 16-byte flag row f goes into byte c (the multiply
+// gathers bit 0 of each byte of two words, bit 8b + 4w to bit 24 + 4w +
+// b, carry-free).
+__device__ __forceinline__ void flag_row(const uint4& f, int c,
+                                         uint32_t* fb) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t u = nz_bits(word_of(f, 2 * h)) |
+                       nz_bits(word_of(f, 2 * h + 1)) << 4;
+    fb[h] |= ((u * 0x01020408u) >> 24) << (8 * c);
+  }
+}
+
+// position k's values (a byte a channel) from the four 16-byte value rows
+__device__ __forceinline__ void value_rows(const uint4* x, uint32_t* v) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    transpose4(word_of(x[0], q), word_of(x[1], q), word_of(x[2], q),
+               word_of(x[3], q), v + 4 * q);
+}
+
+// position k's reset bytes (0xFF where its channel resets): its bits
+// moved to the top of each byte, replicated
+__device__ __forceinline__ uint32_t reset_mask(const uint32_t* fb, int k) {
+  return sign_bytes(fb[k >> 3] << (7 - (k & 7)));
+}
+
+// a state: four channels' values (a byte each) and reset bytes
+struct RS {
+  uint32_t v, m;
+};
+
+__device__ __forceinline__ RS rcomb(const RS& a, const RS& b) {
+  return RS{resolve_comb(a.v, b.v, b.m), a.m | b.m};
+}
+
+__device__ __forceinline__ RS rshfl_up(const RS& x, int d) {
+  return RS{__shfl_up_sync(kFull, x.v, d), __shfl_up_sync(kFull, x.m, d)};
+}
+
+// status word: flag << 62 | the four reset bits << 32 | the values
+__device__ __forceinline__ void rpublish(unsigned long long* at,
+                                         unsigned flag, const RS& x) {
+  *reinterpret_cast<volatile unsigned long long*>(at) =
+      (static_cast<unsigned long long>(flag) << 62) |
+      (static_cast<unsigned long long>(mask_bits(x.m)) << 32) | x.v;
+}
+
+// The resolve scan's status words for look_back
+struct Resolve {
+  using S = RS;
+  static __device__ __forceinline__ unsigned read(const Args& a, long long at,
+                                                  RS& x) {
+    const unsigned long long w =
+        *reinterpret_cast<const volatile unsigned long long*>(a.status + at);
+    x = RS{static_cast<uint32_t>(w),
+           mask_bytes(static_cast<uint32_t>(w >> 32) & 0xFu)};
+    return static_cast<unsigned>(w >> 62);
+  }
+  static __device__ __forceinline__ RS join(const RS& x, const RS& y) {
+    return rcomb(x, y);
+  }
+  static __device__ __forceinline__ RS down(const RS& x, int d) {
+    return RS{__shfl_down_sync(kFull, x.v, d),
+              __shfl_down_sync(kFull, x.m, d)};
+  }
+  static __device__ __forceinline__ RS from(const RS& x, int src) {
+    return RS{__shfl_sync(kFull, x.v, src), __shfl_sync(kFull, x.m, src)};
+  }
+};
+
+// 16 bytes of global memory, not kept in L1
+__device__ __forceinline__ uint4 ld_nc16(const uint8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Bytes [e, e + 16) of a row of len bytes at any alignment, zero from len
+// on (e a multiple of 16): the one or two 16-byte chunks of the row that
+// hold them, a whole chunk by one load and the row's edge chunks byte by
+// byte, joined by a funnel shift.
+__device__ uint4 row16(const uint8_t* row, long long e, long long len) {
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15u);
+  uint32_t w[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long b0 = e - lead + 16 * h;
+    uint32_t cw[4] = {0u, 0u, 0u, 0u};
+    if (h == 0 || lead != 0) {
+      if (b0 >= 0 && b0 + 16 <= len) {
+        const uint4 c = ld_nc16(row + b0);
+        cw[0] = c.x, cw[1] = c.y, cw[2] = c.z, cw[3] = c.w;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          if (b0 + b >= 0 && b0 + b < len)
+            cw[b >> 2] |= static_cast<uint32_t>(__ldg(row + b0 + b))
+                          << (8 * (b & 3));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[4 * h + k] = cw[k];
+  }
+  const int q = lead >> 2;
+  const uint32_t r = 8u * (lead & 3);
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t lo = q == 0 ? w[k] : q == 1 ? w[k + 1]
+                        : q == 2 ? w[k + 2] : w[k + 3];
+    const uint32_t hi = q == 0 ? w[k + 1] : q == 1 ? w[k + 2]
+                        : q == 2 ? w[k + 3] : w[k + 4];
+    o[k] = __funnelshift_r(lo, hi, r);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Tile j's leaves where its rows do not start on 16 bytes or it is the
+// ragged last tile: lane r's values v (a byte a channel) and reset flags
+// fb from memory at any alignment, a row at a time
+__device__ __forceinline__ void leaves_any(const Args& a, long long e,
+                                           uint32_t* v, uint32_t* fb) {
+  fb[0] = fb[1] = 0u;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    flag_row(row16(a.in0 + static_cast<long long>(c) * a.len, e, a.len), c,
+             fb);
+  uint4 x[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    x[c] = row16(a.in1 + static_cast<long long>(c) * a.len, e, a.len);
+  value_rows(x, v);
+}
+
+// Tile j's loads (a whole tile, rows on 16 bytes): lane r's 16-byte span
+// of each of the eight input rows (rflag's four channels, then val's)
+__device__ __forceinline__ void load_tile(const Args& a, long long j,
+                                          uint4 (*raw)[8]) {
+  const long long e0 = j * kRTile + 16LL * threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kRLanes; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      raw[r][c] = ld_nc16((c < 4 ? a.in0 : a.in1) +
+                          static_cast<long long>(c & 3) * a.len + e0 +
+                          16LL * r * kRThreads);
+}
+
+// One tile a block, taken by ticket. Lane r of thread t holds positions
+// e = 16 (t + r kRThreads) .. e + 15 of the tile, so that a warp's loads
+// and stores of a row cover 512 contiguous bytes.
+__global__ void __launch_bounds__(kRThreads, kRBlocks)
+resolve_kernel(Args a) {
+  __shared__ RS wt[kRGroups];
+  __shared__ RS tile_pre;
+  __shared__ long long tk_s;
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const long long len = a.len;
+  if (t == 0) tk_s = static_cast<long long>(atomicAdd(a.ticket, 1ull));
+  __syncthreads();
+  const long long j = tk_s;
+  // a whole tile whose rows (and the output's) start on 16 bytes
+  const bool whole =
+      ((reinterpret_cast<uintptr_t>(a.in0) | reinterpret_cast<uintptr_t>(a.in1)
+        | reinterpret_cast<uintptr_t>(a.out0) | static_cast<uintptr_t>(len))
+       & 15u) == 0u && (j + 1) * kRTile <= len;
+
+  // -- 1. loads and one transpose: position k's four values in v[r][k],
+  // its four reset flags in fb[r] (4 bits a position)
+  uint32_t v[kRLanes][16], fb[kRLanes][2];
+  if (whole) {
+    // every load of the tile issued before the first is used
+    uint4 raw[kRLanes][8];
+    load_tile(a, j, raw);
+#pragma unroll
+    for (int r = 0; r < kRLanes; ++r) {
+      fb[r][0] = fb[r][1] = 0u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) flag_row(raw[r][c], c, fb[r]);
+      value_rows(raw[r] + 4, v[r]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRLanes; ++r)
+      leaves_any(a, j * kRTile + 16LL * (t + r * kRThreads), v[r], fb[r]);
+  }
+
+  // -- 2. the lanes' folds; 3. block scan: warp shuffles, then (warp 0)
+  // the warp totals' scan
+  RS inc[kRLanes];
+#pragma unroll
+  for (int r = 0; r < kRLanes; ++r) {
+    uint32_t x = v[r][0];
+#pragma unroll
+    for (int k = 1; k < 16; ++k)
+      x = resolve_comb(x, v[r][k], reset_mask(fb[r], k));
+    inc[r] = RS{x, nz_bits(fb[r][0] | fb[r][1]) * 0xFFu};
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const RS y = rshfl_up(inc[r], d);
+      if (lane >= d) inc[r] = rcomb(y, inc[r]);
+    }
+    if (lane == 31) wt[r * kRWarps + wid] = inc[r];
+  }
+  __syncthreads();
+
+  // -- 4. warp 0: the tile's aggregate, published; the look-back
+  const bool look = j > 0;
+  if (wid == 0) {
+    RS y = wt[lane < kRGroups ? lane : kRGroups - 1];
+#pragma unroll
+    for (int d = 1; d < kRGroups; d <<= 1) {
+      const RS z = rshfl_up(y, d);
+      if (lane >= d) y = rcomb(z, y);
+    }
+    if (lane < kRGroups) wt[lane] = y;
+    const RS agg{__shfl_sync(kFull, y.v, kRGroups - 1),
+                 __shfl_sync(kFull, y.m, kRGroups - 1)};
+    if (!look) {
+      if (lane == 0) rpublish(a.status + j, kInc, agg);
+    } else {
+      if (lane == 0) rpublish(a.status + j, kAgg, agg);
+      const RS ex = look_back<Resolve>(a, 0, j);
+      if (lane == 0) {
+        rpublish(a.status + j, kInc, rcomb(ex, agg));
+        tile_pre = ex;
+      }
+    }
+  }
+  __syncthreads();
+
+  // -- 5. apply from the seed, a state that resets every channel before
+  // the row: each inclusive state's values are the px; back to the four
+  // channel rows by the same transpose; 6. stores
+#pragma unroll
+  for (int r = 0; r < kRLanes; ++r) {
+    // the lane's prefix: the tile's, then its own in the tile
+    const int g = r * kRWarps + wid;
+    const RS up = rshfl_up(inc[r], 1);
+    bool h = lane > 0 || g > 0;
+    RS p = up;
+    if (g > 0) p = lane > 0 ? rcomb(wt[g - 1], up) : wt[g - 1];
+    if (look) {
+      p = h ? rcomb(tile_pre, p) : tile_pre;
+      h = true;
+    }
+    uint32_t acc = h ? resolve_comb(kSeedPx, p.v, p.m) : kSeedPx;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      acc = resolve_comb(acc, v[r][k], reset_mask(fb[r], k));
+      v[r][k] = acc;
+    }
+    uint32_t o[4][4];   // o[c][q]: channel c's bytes 4q .. 4q + 3
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t c4[4];
+      transpose4(v[r][4 * q], v[r][4 * q + 1], v[r][4 * q + 2],
+                 v[r][4 * q + 3], c4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[c][q] = c4[c];
+    }
+    const long long e = j * kRTile + 16LL * (t + r * kRThreads);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 w4 = make_uint4(o[c][0], o[c][1], o[c][2], o[c][3]);
+      uint8_t* dst = a.out0 + static_cast<long long>(c) * len + e;
+      if (whole) {
+        __stcs(reinterpret_cast<uint4*>(dst), w4);
+      } else if (e + 16 <= len &&
+                 (reinterpret_cast<uintptr_t>(dst) & 15u) == 0u) {
+        *reinterpret_cast<uint4*>(dst) = w4;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (e + k < len)
+            dst[k] = static_cast<uint8_t>(o[c][k >> 2] >> (8 * (k & 3)));
+      }
+    }
+  }
+}
+
+// scratch (zeroed here): the ticket and a status word a tile
+int run_resolve(Args a, void* scratch, void* stream) {
+  if (a.len <= 0) return 0;
+  a.nt = (a.len + kRTile - 1) / kRTile;
+  if (a.nt > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.ticket = static_cast<unsigned long long*>(scratch);
+  a.status = a.ticket + 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(scratch, 0, (1 + a.nt) * 8, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  resolve_kernel<<<static_cast<unsigned>(a.nt), kRThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -923,6 +1197,5 @@ extern "C" int qoi_anch_scan(const void* leaf, void* out, void* scratch,
 extern "C" int qoi_resolve_scan(const void* rflag, const void* val,
                                 void* out, void* scratch, long long m,
                                 void* stream) {
-  return run<kResolve>(make_args(rflag, val, out, nullptr, m), 1, scratch,
-                       stream);
+  return run_resolve(make_args(rflag, val, out, nullptr, m), scratch, stream);
 }

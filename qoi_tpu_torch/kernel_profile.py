@@ -1,25 +1,34 @@
-"""Where the time of the slide_val and staging kernels goes, on the card.
+"""Where the time of the slide_val, staging and one-pass scan kernels
+goes, on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m qoi_tpu_torch.kernel_profile [--only words,planes] [--sass]
+    python3 -m qoi_tpu_torch.kernel_profile [--only words,resolve] [--sass]
 
 It builds the kernels, prints the ptxas lines of the build (registers,
-spills), then, at the 4K shapes `chip_smoke.py` uses (the slide planes of a
-3840x2160 mixed RGBA frame's word-sum events, and the staging of that
-frame and of a 4K RGB photo frame in its three forms: fused, words and
-planes), times each wrapper call with CUDA events (mean of 20 calls after
-one warm-up), the slide wrapper's output allocation alone, and lists every
+spills), then, at the 4K shapes `chip_smoke.py` uses, times each wrapper
+call with CUDA events (mean of 20 calls after one warm-up) and lists every
 device activity one wrapper call causes, by torch.profiler over 10 calls
 (name, count per call, mean microseconds), with the kernels' and the
-memsets' device time a call apart. `--only` picks among slide, fused,
-words and planes. `--sass` prints, for
-each staging kernel of the built library, its SASS instruction count
-(`cuobjdump -sass`) in sections cut at each block barrier (BAR), so that
-a phase's instructions can be told from the set-up's and the
-look-back's. Run on an older checkout (as an A/B against a parent, the
-two in turns in one call), it skips a staging form that checkout lacks.
-Without a card it exits 2.
+memsets' device time a call apart, and each kernel's mean device time a
+launch. `--only` picks among:
+  slide    the slide planes of a 3840x2160 mixed RGBA frame's word-sum
+           events (and the output allocation alone);
+  fused, words, planes
+           the staging of that frame and of a 4K RGB photo frame;
+  resolve  v2's resolve_scan on the round-0 leaves of the 4K photo and
+           mixed streams (seed 3), padded as `decode_v2.decode` pads them;
+  scans    the five other entries of csrc/blocked_scan.cu (fsm_scan,
+           fsm_starts, initial_scan, initial_w_scan, anch_scan) at the 4K
+           mixed stream's shapes.
+`--sass` prints, for each staging and resolve kernel of the built
+library, its SASS instruction count (`cuobjdump -sass`) in sections cut
+at each block barrier (BAR), so that a phase's instructions can be told
+from the set-up's and the look-back's. Run on an older checkout (as an A/B
+against a parent, the two in turns in one call, with this file and
+models/decode_v2.py and decode_v3.py copied in for their input
+helpers), it skips a staging form that checkout lacks and times that
+checkout's resolve_scan. Without a card it exits 2.
 """
 from __future__ import annotations
 
@@ -37,6 +46,10 @@ W, H = 3840, 2160
 REPS = 20
 STAGES = {"fused": "encode_stage_pallas", "words": "encode_stage_words",
           "planes": "encode_stage_planes"}
+ONLY = "slide,fused,words,planes,resolve,scans"
+#: SASS listed by --sass: the staging kernels, the resolve scan's kernel
+#: (and, in an older checkout, the one-pass template's resolve entry)
+SASS_KEYS = ("stage", "resolve", "one_pass_kernelILi5E")
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -90,6 +103,11 @@ def report(label: str, fn) -> None:
     kernel = sum(c * us for name, c, us in rows) - memset
     print(f"  device a call: kernels {kernel:.2f} us, memsets {memset:.2f} us",
           flush=True)
+    # a launch's mean, which holds where the profiler misses a call's
+    # events (it then reports fewer than one a call)
+    for name, _, us in rows:
+        if not name.lower().startswith("memset"):
+            print(f"  device a launch: {us:.2f} us, {name[:60]}", flush=True)
 
 
 def _cuobjdump() -> str:
@@ -101,23 +119,25 @@ def _cuobjdump() -> str:
 
 
 def sass_sections(so) -> dict:
-    """{kernel name: [instructions of each section]} for the staging
-    kernels of the library, by `cuobjdump -sass` (see count_sections)."""
+    """{kernel name: [instructions of each section]} for the staging and
+    resolve kernels of the library, by `cuobjdump -sass` (see
+    count_sections)."""
     return count_sections(subprocess.run(
         [_cuobjdump(), "-sass", str(so)], capture_output=True, text=True,
-        check=True).stdout)
+        check=True).stdout, SASS_KEYS)
 
 
-def count_sections(sass: str) -> dict:
+def count_sections(sass: str, keys=("stage",)) -> dict:
     """{kernel name: [instructions of each section]} of the kernels whose
-    names hold "stage" in a `cuobjdump -sass` listing; sections end at
-    each block barrier (BAR.SYNC / BAR.RED; not BAR.ARV), which stays in
-    the section it ends."""
+    names hold one of `keys` in a `cuobjdump -sass` listing; sections end
+    at each block barrier (BAR.SYNC / BAR.RED; not BAR.ARV), which stays
+    in the section it ends."""
     kernels, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "stage" in m.group(1) else None
+            name = m.group(1) if any(k in m.group(1) for k in keys) \
+                else None
             if name:
                 kernels[name] = [0]
             continue
@@ -134,9 +154,68 @@ def count_sections(sass: str) -> dict:
     return kernels
 
 
+def ptxas_of(lines, key: str) -> list:
+    """The ptxas lines (registers, shared memory, spills) of the entry
+    whose name holds `key`, from an `nvcc -Xptxas -v` log."""
+    out, on = [], False
+    for line in lines:
+        if "Compiling entry" in line:
+            on = key in line
+        elif on and any(k in line for k in ("registers", "smem", "spill")):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def profile_resolve(dev) -> None:
+    """resolve_scan at the 4K photo and mixed streams' round-0 leaves."""
+    from . import format as fmt
+    from . import oracle
+    from .kernels import blocked_scan as kbs
+    from .models import decode_v2
+    from .utils import testimages
+
+    for kind in ("photo", "mixed"):
+        img = getattr(testimages, kind)(W, H, 4, seed=3)
+        rflag, val = decode_v2.round0_leaves(*decode_v2.stream_body(
+            oracle.encode(img, fmt.StreamDesc(W, H, 4)), dev))
+        del img
+        m = rflag.shape[1]
+        report(f"resolve_scan wrapper, 4K {kind} stream's leaves, (4, {m}); "
+               f"bound {12 * m / 3.35e9:.4f} ms (12 B a position at "
+               f"3.35 TB/s)", lambda: kbs.resolve_scan(rflag, val))
+        del rflag, val
+
+
+def profile_scans(dev) -> None:
+    """The five other one-pass entries at the 4K mixed stream's shapes,
+    as chip_smoke.py builds them."""
+    from . import format as fmt
+    from . import oracle
+    from .kernels import blocked_scan as kbs
+    from .models import decode_pipeline, decode_v3
+    from .utils import testimages
+
+    s = oracle.encode(testimages.mixed(W, H, 4, seed=3),
+                      fmt.StreamDesc(W, H, 4))
+    raw = np.frombuffer(s, np.uint8)[fmt.HEADER_SIZE:]
+    pad = np.zeros(decode_pipeline.bucket_size_fine(len(raw)), np.uint8)
+    pad[: len(raw)] = raw
+    data = torch.from_numpy(pad).to(dev)
+    clen = len(s) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
+    starts, leaf_w, npix32, leaf_a = decode_v3.scan_inputs(data, clen)
+    m = data.shape[0]
+    for name, fn in (
+            ("fsm_scan", lambda: kbs.fsm_scan(data)),
+            ("fsm_starts", lambda: kbs.fsm_starts(data, clen)),
+            ("initial_scan", lambda: kbs.initial_scan(leaf_w, npix32)),
+            ("initial_w_scan", lambda: kbs.initial_w_scan(data, starts)),
+            ("anch_scan", lambda: kbs.anch_scan(leaf_a))):
+        report(f"{name} wrapper, 4K mixed stream, M={m}", fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kernel_profile")
-    ap.add_argument("--only", default="slide,fused,words,planes")
+    ap.add_argument("--only", default=ONLY)
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -167,6 +246,12 @@ def main(argv=None) -> int:
         for name, secs in sass_sections(so).items():
             print(f"  sass: {name}: {sum(secs)} instructions, by barrier "
                   f"section {secs}", flush=True)
+    if "resolve" in only:
+        profile_resolve(dev)
+    if "scans" in only:
+        profile_scans(dev)
+    if not only & {"slide", "fused", "words", "planes"}:
+        return 0
 
     n = W * H
     npc = decode_pipeline.bucket_size(n)

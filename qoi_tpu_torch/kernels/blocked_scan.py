@@ -50,7 +50,8 @@ TILE_FSM = 16384
 TILE_BYTES = 8192
 TILE_LEAVES = 4096
 TILE_ANCH = 8192
-#: positions a tile of the resolve scan: 512 threads x 16
+#: positions a tile of the resolve scan (its own kernel,
+#: `resolve_kernel`): 256 threads x two 16-position lanes
 TILE_RESOLVE = 8192
 #: longest bytes-form row: the status word holds a 40-bit npix sum, and
 #: a chunk covers at most 62 pixels

@@ -195,6 +195,27 @@ def decode_group(data: torch.Tensor, chunks_len, n_px_cap: int):
     return torch.stack(outs), conv
 
 
+def stream_body(data: bytes, dev):
+    """A stream's body (its bytes after the header) zero-padded to its
+    bucket, on dev, and its chunks_len: what `decode` gives
+    `_decode_v2_device`."""
+    chunks = np.frombuffer(data, dtype=np.uint8)[fmt.HEADER_SIZE:]
+    padded = np.zeros((v1.bucket_size(len(chunks)),), np.uint8)
+    padded[: len(chunks)] = chunks
+    return (torch.from_numpy(padded).to(dev),
+            len(data) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE)
+
+
+def round0_leaves(body: torch.Tensor, chunks_len):
+    """The leaves (rflag, val) of round 0's resolve scan of a padded body,
+    INDEX chunks reading the zero entry, as `_decode_v2_device` builds
+    them."""
+    flags, lit, deltas, _, _ = _fields(body, chunks_len)
+    f = _unpack_flags(flags)
+    return _resolve_leaves(f, lit, deltas, torch.zeros_like(lit),
+                           torch.zeros_like(f["starts"]))
+
+
 def decode(data: bytes, channels: int = 0, device="cuda"
            ) -> Tuple[np.ndarray, fmt.StreamDesc]:
     """Decode a QOI stream on `device` through the gather-free pipeline;
@@ -209,14 +230,9 @@ def decode(data: bytes, channels: int = 0, device="cuda"
     desc = fmt.unpack_header(data)
     out_ch = channels if channels else desc.channels
 
-    chunks = np.frombuffer(data, dtype=np.uint8)[fmt.HEADER_SIZE:]
-    chunks_len = len(data) - fmt.HEADER_SIZE - fmt.TRAILER_SIZE
-    padded = np.zeros((v1.bucket_size(len(chunks)),), np.uint8)
-    padded[: len(chunks)] = chunks
-
-    px4, converged, _ = _decode_v2_device(
-        torch.from_numpy(padded).to(dev), chunks_len,
-        v1.bucket_size(desc.num_pixels))
+    body, chunks_len = stream_body(data, dev)
+    px4, converged, _ = _decode_v2_device(body, chunks_len,
+                                          v1.bucket_size(desc.num_pixels))
     if not converged:
         return v1.decode(data, channels, dev)
     img = px4.T[: desc.num_pixels, :out_ch].cpu().numpy()

@@ -400,6 +400,17 @@ _INF = 0x7FFFFFF0
 _DENSE_SEG = 4096
 
 
+def scan_inputs(data: torch.Tensor, chunks_len):
+    """The one-pass scans' inputs on a padded stream body, as the decode
+    gives them: the chunk starts, `_initial_w`'s int32 leaf and npix, and
+    `_anchored_w`'s (1, M) int32 leaf from the round-1 px."""
+    starts, cls, r6, d32, lit32, npix = _fields(data, chunks_len)
+    leaf_w = _initial_leaf(cls, r6, d32, lit32).to(torch.int32)
+    px1, *_ = _decode_core(data, chunks_len, max_rounds=1)
+    leaf_a = _anch_leaf(cls, r6, d32, px1).to(torch.int32)[None]
+    return starts, leaf_w, npix.to(torch.int32), leaf_a
+
+
 def _chunk_events(starts, pix_off, px32):
     """The (nseg, 4096) rows `_compact_chunks` slides: pix_off and px32 as
     int32 planes, and aux = alive (chunk start) | d << 1 with d = index in

@@ -1,5 +1,6 @@
 """kernel_profile's SASS section count (`count_sections`), which PERF.md's
-instructions a pixel rest on, on a listing in cuobjdump's format."""
+instructions a pixel rest on, on a listing in cuobjdump's format, and its
+reader of ptxas's lines for one entry (`ptxas_of`)."""
 from qoi_tpu_torch.kernel_profile import count_sections
 
 _LISTING = """
@@ -35,3 +36,38 @@ def test_no_barrier_is_one_section():
     listing = _LISTING.replace("BAR.SYNC.DEFER_BLOCKING 0x0", "NOP").replace(
         "BAR.RED.POPC RZ, 0x0", "NOP")
     assert count_sections(listing) == {"_ZN12stage_tile_kernelILi1EEEv": [9]}
+
+
+def test_sections_take_the_resolve_kernel():
+    """With SASS_KEYS, the resolve scan's kernel (and an older checkout's
+    one-pass entry 5) is counted beside the staging kernels."""
+    from qoi_tpu_torch.kernel_profile import SASS_KEYS
+    listing = _LISTING.replace("stage_tile_kernelILi1EEEv",
+                               "GLOBAL__N_114resolve_kernelENS_4ArgsE")
+    assert count_sections(listing) == {}
+    assert count_sections(listing, SASS_KEYS) == {
+        "_ZN12GLOBAL__N_114resolve_kernelENS_4ArgsE": [3, 4, 2]}
+    old = _LISTING.replace("stage_tile_kernelILi1EEEv",
+                           "one_pass_kernelILi5EEEvNS_4ArgsE")
+    assert list(count_sections(old, SASS_KEYS)) == [
+        "_ZN12one_pass_kernelILi5EEEvNS_4ArgsE"]
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115one_pass_kernelILi4EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115one_pass_kernelILi4EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 57 registers, used 1 barriers, 16416 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114resolve_kernelENS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114resolve_kernelENS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 125 registers, used 1 barriers, 144 bytes smem
+""".splitlines()
+
+
+def test_ptxas_of_takes_the_named_entry_only():
+    from qoi_tpu_torch.kernel_profile import ptxas_of
+    assert ptxas_of(_PTXAS_LOG, "resolve_kernel") == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 125 registers, used 1 barriers, 144 bytes smem"]
+    assert ptxas_of(_PTXAS_LOG, "numeric_scan_kernel") == []

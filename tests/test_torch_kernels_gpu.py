@@ -1147,19 +1147,29 @@ def test_decode_device_launches_each_scan(dev):
 
 # ---- resolve_scan: v2's reset-or-add scan ------------------------------
 
-#: ragged lengths around the kernel's 8192-position tiles, and 1101 tiles
-RESOLVE_LENGTHS = [1, 17, 4095, 4097, 8191, 8192, 8193, 70001,
-                   8192 * 1101 + 5]
+#: lengths around the kernel's tiles (kbs.TILE_RESOLVE = 8192 positions,
+#: two lanes of 4096 a thread): the lanes' edges, t - 1, t, t + 1, two
+#: tiles' edges, and 1101 tiles + 5, whose look-backs slide past 32 tiles
+RESOLVE_LENGTHS = [1, 17, 4095, 4096, 4097, 8191, 8192, 8193, 16383,
+                   16385, 70001, 8192 * 1101 + 5]
 
 
-def _resolve_leaves(m, seed, offset=0, dev=None):
-    """(4, M) uint8 rflag and val: resets of RGB only, alpha only and
-    both, sparse, values of any byte (adds that wrap mod 256), each a
-    contiguous view `offset` bytes into its buffer."""
+def _resolve_leaves(m, seed, offset=0, dev=None, kind="sparse"):
+    """(4, M) uint8 rflag and val, each a contiguous view `offset` bytes
+    into its buffer; values of any byte (adds that wrap mod 256). Flags:
+    "sparse" resets of RGB only, alpha only and both; "all" and "none";
+    "odd" flag bytes of 1, 2, 0x80 and 0xFF among zeros (any nonzero byte
+    resets)."""
     rng = np.random.default_rng(seed)
-    rgb = rng.random(m) < 0.02
-    alpha = rng.random(m) < 0.01
-    f = np.stack([rgb, rgb, rgb, alpha]).astype(np.uint8)
+    if kind == "sparse":
+        rgb = rng.random(m) < 0.02
+        alpha = rng.random(m) < 0.01
+        f = np.stack([rgb, rgb, rgb, alpha]).astype(np.uint8)
+    elif kind == "odd":
+        f = rng.choice(np.array([0] * 12 + [1, 2, 0x80, 0xFF], np.uint8),
+                       (4, m))
+    else:
+        f = np.full((4, m), int(kind == "all"), np.uint8)
     v = rng.integers(0, 256, (4, m), dtype=np.uint8)
     out = []
     for x in (f, v):
@@ -1177,17 +1187,14 @@ def test_resolve_scan_kernel_matches_twin(dev, m):
                    (kbs.resolve_scan_plain(rflag, val),))
 
 
-def _v2_leaves(dev, stream):
-    """v2's round-0 leaves of a stream padded as `decode_v2.decode` pads
-    it."""
-    raw = np.frombuffer(stream, np.uint8)[fmt.HEADER_SIZE:]
-    pad = np.zeros(decode_pipeline.bucket_size(len(raw)), np.uint8)
-    pad[: len(raw)] = raw
-    data = torch.from_numpy(pad).to(dev)
-    flags, lit, deltas, _, _ = decode_v2._fields(data, len(raw) - 8)
-    f = decode_v2._unpack_flags(flags)
-    return data, len(raw) - 8, decode_v2._resolve_leaves(
-        f, lit, deltas, torch.zeros_like(lit), torch.zeros_like(f["starts"]))
+#: M % 16 != 0 at offset 0 (rows 1-3 start off 16 bytes: the general
+#: path on whole tiles), and 16-byte rows whose last tile is ragged
+@pytest.mark.parametrize("m", [3 * 4096 + 8, 5 * 4096 + 4, 7 * 4096 + 16])
+@pytest.mark.parametrize("kind", ["sparse", "all", "none", "odd"])
+def test_resolve_scan_kernel_flag_kinds_and_rows(dev, m, kind):
+    rflag, val = _resolve_leaves(m, m, 0, dev, kind)
+    _same_scan((kbs.resolve_scan(rflag, val),),
+               (kbs.resolve_scan_plain(rflag, val),))
 
 
 @pytest.mark.parametrize("kind", ["photo", "mixed"])
@@ -1199,7 +1206,8 @@ def test_resolve_scan_at_a_4k_stream(dev, kind):
     make = getattr(testimages, kind)
     img = make(3840, 2160, 4, seed=3)
     s = oracle.encode(img, fmt.StreamDesc(3840, 2160, 4))
-    data, clen, (rflag, val) = _v2_leaves(dev, s)
+    data, clen = decode_v2.stream_body(s, dev)
+    rflag, val = decode_v2.round0_leaves(data, clen)
     first = kbs.resolve_scan(rflag, val)
     _same_scan((first,), (kbs.resolve_scan_plain(rflag, val),))
     runs = [kbs.resolve_scan(rflag, val) for _ in range(100)]
