@@ -1,0 +1,7 @@
+"""fields_ms: decode fields, the ops launched under
+`decode_v3._fields`, device ms a frame in the traced stretch."""
+SPANS = ("qoi_tpu_torch.models.decode_v3._fields",)
+
+
+def read(ctx):
+    return None if ctx.trace is None else ctx.trace.span_ms(SPANS[0])
