@@ -29,11 +29,11 @@ frames, decode over the photo and mixed streams, best of 3.
 
 Prints one JSON line on stdout (the keys and units of bench.py, plus
 `baseline_encode_mpxs`, `baseline_decode_mpxs`, `device`,
-`power_limit_w` and `reps`); diagnostics (ms a batch, KiB a stream, the
-fraction of the speed-of-light model, peak device memory of each phase)
-go to stderr. Timing needs a CUDA device: without --check-only any other
-device raises. --check-only runs the gates on any device and prints
-`{"verified": true, "device": ...}` and no rate.
+`power_limit_w` and `reps`); diagnostics (ms a batch, KiB a stream, peak
+device memory of each phase) go to stderr. Timing needs a CUDA device:
+without --check-only any other device raises. --check-only runs the
+gates on any device and prints `{"verified": true, "device": ...}` and no
+rate.
 """
 from __future__ import annotations
 
@@ -267,12 +267,10 @@ def _run(opts, dev: torch.device, name: str) -> dict:
     _times_line("encode", ts)
     enc_n = nf * nd
     enc_mpxs = enc_n * n / 1e6 / min(ts)
-    enc_sol = profiling.encode_sol_model(enc_n * n, 4)
     log(f"encode {enc_n}x{desc.width}x{desc.height} RGBA mixed: "
         f"{min(ts) * 1e3:.3f} ms/batch, {enc_mpxs:.3f} Mpx/s, "
         f"{enc_kib:.0f} KiB/stream ({100 * enc_kib * 1024 / (n * 4):.1f}%), "
-        f"SOL fraction {enc_mpxs / enc_sol['sol_mpps']:.6f}, peak device "
-        f"memory {enc_peak}")
+        f"peak device memory {enc_peak}")
     del xs
 
     dec_mpxs = {}
@@ -286,11 +284,9 @@ def _run(opts, dev: torch.device, name: str) -> dict:
         ts = profiling.device_sync_times(decode_frames, reps, dev)
         _times_line(f"decode[{label}]", ts)
         mpxs = nf * nd * n / 1e6 / min(ts)
-        sol = profiling.decode_sol_model(nf * nd * n, 4)
         log(f"decode[{label}] {nf * nd}x{desc.width}x{desc.height} RGBA: "
-            f"{min(ts) * 1e3:.3f} ms/batch, {mpxs:.3f} Mpx/s, SOL fraction "
-            f"{mpxs / sol['sol_mpps']:.6f}, peak device memory "
-            f"{_peak_gib(dev)}")
+            f"{min(ts) * 1e3:.3f} ms/batch, {mpxs:.3f} Mpx/s, peak device "
+            f"memory {_peak_gib(dev)}")
         dec_mpxs[label] = mpxs
     del classes
 

@@ -33,6 +33,14 @@ numerically (kernels/numeric_scan.py), the differential anchor of
 `_apply_symbolic`; it leaves the surgical round off, as the JAX package
 does. `decode_group` loops over its streams where the JAX package vmaps
 them.
+
+Spans (utils/profiling.annotate; record_function ranges while a profiler
+runs, free otherwise): `qoi.decode` is one stream's `_decode_device`, and
+inside it `qoi.decode.fields`, `.estimate` (the initial scan, and each
+anchored rebuild inside the fixpoint), `.fixpoint` (from w0 to the
+fixpoint's end; in each round `.maps` = pass 1, `.compose` = pass 2,
+`.apply` = pass 3 and `.certify` = the check and its host read) and
+`.expand`.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from ..kernels.slide import slide_val2
 from ..ops import fsm
 from ..ops.compact import assemble_rows
 from ..ops.scans import assoc_scan, exclusive_cumsum
+from ..utils.profiling import annotate
 from . import decode_pipeline as v1
 
 _ABS = 65  # per-channel root symbol: absolute value (no entry dependence)
@@ -220,15 +229,20 @@ def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None,
     (kernels/numeric_scan.py: the CUDA kernel on the card), the
     differential anchor of the vector form, and extra is None."""
     _check_apply(apply)
-    meta_p = base_p | (_pos_major(w, m, b) << 3).to(torch.int32)
-    root, val, proot, pval = block_maps(meta_p, d32_p, lit32_p)
+    with annotate("qoi.decode.maps"):
+        meta_p = base_p | (_pos_major(w, m, b) << 3).to(torch.int32)
+        root, val, proot, pval = block_maps(meta_p, d32_p, lit32_p)
     if apply == "scan":
-        entry = _compose_entry_states(root, val, entry65)
-        px, exit65 = numeric_scan(meta_p, d32_p, lit32_p, to_i32(entry))
-        return u32(px).T.reshape(m), u32(exit65), None
-    entry, exit65 = _compose_entry_states(root, val, entry65,
-                                          return_exit=True)
-    px = _apply_symbolic(proot, pval, entry).T.reshape(m)
+        with annotate("qoi.decode.compose"):
+            entry = _compose_entry_states(root, val, entry65)
+        with annotate("qoi.decode.apply"):
+            px, exit65 = numeric_scan(meta_p, d32_p, lit32_p, to_i32(entry))
+            return u32(px).T.reshape(m), u32(exit65), None
+    with annotate("qoi.decode.compose"):
+        entry, exit65 = _compose_entry_states(root, val, entry65,
+                                              return_exit=True)
+    with annotate("qoi.decode.apply"):
+        px = _apply_symbolic(proot, pval, entry).T.reshape(m)
     return px, exit65, (root, val, entry, proot)
 
 
@@ -346,50 +360,59 @@ def _decode_core(data: torch.Tensor, chunks_len, max_rounds: int = _MAX_ROUNDS,
     m = data.shape[0]
     b = _scan_block_len(m)
     nbk = m // b
-    starts, cls, r6, d32, lit32, npix = _fields(data, chunks_len)
+    with annotate("qoi.decode.fields"):
+        starts, cls, r6, d32, lit32, npix = _fields(data, chunks_len)
     entry_px32 = None if entry65 is None else entry65[0]
     # _initial_w's estimate with its leaves built from the bytes in the
     # kernel (no leaf plane on the card)
-    w0i, pix_off = initial_w_scan(data, starts, entry_px32)
-    w0 = torch.where(starts, w0i, 0)
+    with annotate("qoi.decode.estimate"):
+        w0i, pix_off = initial_w_scan(data, starts, entry_px32)
+    with annotate("qoi.decode.fixpoint"):
+        w0 = torch.where(starts, w0i, 0)
 
-    # loop-invariant position-major planes, transposed once per decode
-    base_f = cls | (r6 << 9)
-    planes = (_pos_major(base_f.to(torch.int32), m, b),
-              _pos_major(to_i32(d32), m, b), _pos_major(to_i32(lit32), m, b))
+        # loop-invariant position-major planes, transposed once per decode
+        base_f = cls | (r6 << 9)
+        planes = (_pos_major(base_f.to(torch.int32), m, b),
+                  _pos_major(to_i32(d32), m, b),
+                  _pos_major(to_i32(lit32), m, b))
 
-    def mismatches(px, w):
-        """certificate: w == hash(px(w)) everywhere forces exactness"""
-        return torch.where(starts, _hash_packed(px), 0) != w
+        def mismatches(px, w):
+            """certificate: w == hash(px(w)) everywhere forces exactness"""
+            return torch.where(starts, _hash_packed(px), 0) != w
 
-    def round_(w, prev_bad):
-        px, exit65, extra = _resolve_p(*planes, w, m, b, entry65, apply)
-        mis = mismatches(px, w)
-        bad = int(mis.sum())  # the one host read per round
-        # bail (-1) when the mismatch count stops shrinking: only
-        # non-canonical streams stall now
-        if bad > 0 and bad >= prev_bad:
-            bad = -1
-        return px, exit65, bad, extra, mis
+        def round_(w, prev_bad):
+            px, exit65, extra = _resolve_p(*planes, w, m, b, entry65, apply)
+            with annotate("qoi.decode.certify"):
+                mis = mismatches(px, w)
+                bad = int(mis.sum())  # the one host read per round
+            # bail (-1) when the mismatch count stops shrinking: only
+            # non-canonical streams stall now
+            if bad > 0 and bad >= prev_bad:
+                bad = -1
+            return px, exit65, bad, extra, mis
 
-    # round 1 is peeled: the anchored rebuild runs only for streams that
-    # need a second round
-    px, exit65, bad, extra, mis = round_(w0, 0x7FFFFFFF)
-    rounds = 1
-    if (bad > 0 and apply == "vector" and surgical and max_rounds > 1
-            and nbk >= 256):
-        ids = _surgical_windows(mis.reshape(nbk, b).any(dim=1))
-        if ids is not None:
-            px, w, exit65 = _surgical_round((base_f, d32, lit32), px, w0,
-                                            w0i, extra, ids, m, b, entry65)
-            bad = int(mismatches(px, w).sum())
-            rounds = 2
-    del extra, mis
-    while bad > 0 and rounds < max_rounds:
-        w = torch.where(starts, _anchored_w(cls, r6, d32, px, entry_px32), 0)
-        px, exit65, bad, _, _ = round_(w, bad)
-        rounds += 1
-    return px, starts, npix, pix_off, bad == 0, rounds, exit65
+        # round 1 is peeled: the anchored rebuild runs only for streams
+        # that need a second round
+        px, exit65, bad, extra, mis = round_(w0, 0x7FFFFFFF)
+        rounds = 1
+        if (bad > 0 and apply == "vector" and surgical and max_rounds > 1
+                and nbk >= 256):
+            ids = _surgical_windows(mis.reshape(nbk, b).any(dim=1))
+            if ids is not None:
+                px, w, exit65 = _surgical_round((base_f, d32, lit32), px,
+                                                w0, w0i, extra, ids, m, b,
+                                                entry65)
+                with annotate("qoi.decode.certify"):
+                    bad = int(mismatches(px, w).sum())
+                rounds = 2
+        del extra, mis
+        while bad > 0 and rounds < max_rounds:
+            with annotate("qoi.decode.estimate"):
+                w = _anchored_w(cls, r6, d32, px, entry_px32)
+            w = torch.where(starts, w, 0)
+            px, exit65, bad, _, _ = round_(w, bad)
+            rounds += 1
+        return px, starts, npix, pix_off, bad == 0, rounds, exit65
 
 
 #: offset of the tail slots of the dense records: past every pixel plane,
@@ -470,11 +493,14 @@ def _decode_device(data: torch.Tensor, chunks_len: int, n_px_cap: int,
     """Device decode of one padded stream body. `apply` picks pass 3:
     "vector" (the default) or "scan", the numeric re-scan (the
     numeric_scan kernel on the card), which runs without the surgical
-    round. Returns (px32 (n_px_cap,) int32, converged, rounds)."""
-    px, starts, _, pix_off, conv, rounds, _ = _decode_core(
-        data, chunks_len, max_rounds, apply=apply, surgical=surgical)
-    return (_expand_packed(starts, px, pix_off, n_px_cap, dense=dense),
-            conv, rounds)
+    round. Returns (px32 (n_px_cap,) int32, converged, rounds). The span
+    `qoi.decode` is the request: every decode span nests in it."""
+    with annotate("qoi.decode"):
+        px, starts, _, pix_off, conv, rounds, _ = _decode_core(
+            data, chunks_len, max_rounds, apply=apply, surgical=surgical)
+        with annotate("qoi.decode.expand"):
+            out = _expand_packed(starts, px, pix_off, n_px_cap, dense=dense)
+        return out, conv, rounds
 
 
 def decode_group(data: torch.Tensor, chunks_len, n_px_cap: int):

@@ -22,6 +22,11 @@ the card: the staging kernels (kernels/encode_stage,
 `csrc/encode_stage.cu`) return the word form's lo, hi and lens and the
 byte-plane form's lens as int32 (bit patterns), where the plain code
 returns int64.
+
+Spans (utils/profiling.annotate; record_function ranges while a profiler
+runs, free otherwise): `qoi.encode` is one `encode_device_wordsum` call,
+with `qoi.encode.stage_chunks` (every `encode_stage_chunks` call) and
+`qoi.encode.compact` (ops/compact.compact_words6_wordsum) inside it.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from .._bits import M32, swar_add, swar_sub
 from ..kernels import encode_stage as kstage
 from ..kernels import pack as kpack
 from ..ops import compact, scans, table
+from ..utils.profiling import annotate
 from .decode_pipeline import bucket_size
 
 _SEED = fmt.SEED_PIXEL
@@ -135,18 +141,19 @@ def encode_stage_chunks(
     device: table_local= serves `encode_device_split` (the kernel replays
     the table itself, so a precomputed block-local table has nothing to
     feed), the other two the fused staging's twin."""
-    if (px4.device.type == "cuda" and table_local is None
-            and last_pos is None and run_resets is None
-            and form in ("words", "bytes")):
-        stage = (kstage.encode_stage_words if form == "words"
-                 else kstage.encode_stage_planes)
-        return stage(px4, n_valid, prev_in=prev_in, run_in=run_in,
-                     table_in=table_in, contains_last=contains_last)
-    return stage_chunks_plain(
-        px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
-        contains_last=contains_last, table_local=table_local,
-        table_block=table_block, form=form, last_pos=last_pos,
-        run_resets=run_resets)
+    with annotate("qoi.encode.stage_chunks"):
+        if (px4.device.type == "cuda" and table_local is None
+                and last_pos is None and run_resets is None
+                and form in ("words", "bytes")):
+            stage = (kstage.encode_stage_words if form == "words"
+                     else kstage.encode_stage_planes)
+            return stage(px4, n_valid, prev_in=prev_in, run_in=run_in,
+                         table_in=table_in, contains_last=contains_last)
+        return stage_chunks_plain(
+            px4, n_valid, prev_in=prev_in, run_in=run_in, table_in=table_in,
+            contains_last=contains_last, table_local=table_local,
+            table_block=table_block, form=form, last_pos=last_pos,
+            run_resets=run_resets)
 
 
 def stage_chunks_plain(
@@ -301,10 +308,12 @@ def encode_device_wordsum(px4: torch.Tensor, n_valid, seg: int = 20480):
     compaction, whose slide is the CUDA kernel on the card. seg=20480
     pixels per compaction row, as in the JAX package. Ragged n pads with
     l=0 records. Returns (words (6*N//4,) int32 -- the stream bytes
-    little-endian -- and total 0-d int64)."""
-    ch = encode_stage_chunks(px4, n_valid)
-    return compact.compact_words6_wordsum(
-        ch.lo, ch.hi, ch.lens, px4.shape[0] * 6, seg=seg)
+    little-endian -- and total 0-d int64). The span `qoi.encode` is the
+    request: the staging's and the compaction's spans nest in it."""
+    with annotate("qoi.encode"):
+        ch = encode_stage_chunks(px4, n_valid)
+        return compact.compact_words6_wordsum(
+            ch.lo, ch.hi, ch.lens, px4.shape[0] * 6, seg=seg)
 
 
 def encode_device_split(px4: torch.Tensor, n_valid,

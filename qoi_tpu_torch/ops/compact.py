@@ -37,6 +37,7 @@ import torch
 
 from .._bits import M32, to_i32, u32
 from ..kernels.slide import slide_val
+from ..utils.profiling import annotate
 from .scans import exclusive_cumsum
 
 #: default pixels per compaction segment (qoi_tpu/ops/compact._COMPACT_SEG)
@@ -83,9 +84,10 @@ def compact_words6_wordsum(
     format's worst case (6 B/px of per-pixel staging)."""
     if capacity % 4:
         raise ValueError(f"capacity {capacity} is not a multiple of 4")
-    ev = wordsum_events(lo, hi, lens, seg)
-    val = slide_val(to_i32(ev.val), ev.aux.to(torch.int32))
-    return _wordsum_assemble(val, ev.wbase, ev.total, ev.v_all, capacity)
+    with annotate("qoi.encode.compact"):
+        ev = wordsum_events(lo, hi, lens, seg)
+        val = slide_val(to_i32(ev.val), ev.aux.to(torch.int32))
+        return _wordsum_assemble(val, ev.wbase, ev.total, ev.v_all, capacity)
 
 
 def wordsum_events(lo, hi, lens, seg: int = 0) -> WordsumEvents:

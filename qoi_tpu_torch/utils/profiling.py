@@ -4,13 +4,14 @@ qoi_tpu/utils/profiling.py).
 - `trace(logdir)` profiles a region with torch.profiler (the host and,
   on the card, its kernels) and writes a Chrome/Perfetto trace,
   `logdir/trace.json`;
-- `annotate(name)` names a region for the profiler (record_function) and,
-  on a machine with a card, for NVTX;
+- `annotate(name)` names a region for the profiler: a record_function
+  range while a profiler runs, nothing otherwise (the port's spans,
+  `qoi.encode*` and `qoi.decode*`, stay on the hot path);
 - `device_sync_time(fn)` times a device callable, synchronizing the card
   around every run (`device_sync_times` keeps every run's seconds);
-- `encode_sol_model` / `decode_sol_model` compute the bytes-moved
-  speed-of-light bound for a given image, the denominator of "fraction
-  of roofline" reporting;
+- `encode_sol_model` / `decode_sol_model`: the JAX package's
+  bytes-moved speed-of-light models, kept equal to them (the port's
+  roofline share is the benchmark's `roofline_pct.*`);
 - `scaling_efficiency`: N-shard Mpx/s over N times the 1-shard Mpx/s.
 
 The JAX package's persistent compile cache (`enable_compile_cache`) has
@@ -25,6 +26,7 @@ import time
 from typing import Callable, Dict, List
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 
 @contextlib.contextmanager
@@ -47,15 +49,30 @@ def trace(logdir, device="cuda"):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-@contextlib.contextmanager
+class _Off:
+    """The span of `annotate` with no profiler running: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
 def annotate(name: str):
-    """Named region: a torch.profiler record_function range and, where
-    torch sees a card, an NVTX range."""
-    with contextlib.ExitStack() as stack:
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        stack.enter_context(torch.profiler.record_function(name))
-        yield
+    """Named region, for `with`: a torch.profiler record_function range
+    while a profiler is on (torch.profiler.profile, or emit_nvtx, which
+    turns record_function ranges into NVTX ranges for Nsight Systems),
+    and a shared do-nothing span otherwise, so that off a span costs one
+    C call and one branch."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def device_sync_times(fn: Callable, reps: int = 5,

@@ -1300,3 +1300,26 @@ def test_profiling_on_card(dev, tmp_path):
     t = profiling.device_sync_time(
         lambda: qoi_tpu_torch.encode(img, device=dev), reps=2, device=dev)
     assert 0 < t < 10
+
+
+def test_spans_under_emit_nvtx(dev, monkeypatch):
+    """Under emit_nvtx (the route to Nsight Systems) the profiler counts as
+    on, so each of the port's spans enters record_function, which emits
+    its NVTX range; with nothing running, none does."""
+    real = torch.profiler.record_function
+    entered = []
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    px = torch.from_numpy(testimages.mixed(48, 32, 4, seed=1)
+                          .reshape(-1, 4).copy()).to(dev)
+    pipeline.encode_device_wordsum(px, px.shape[0])
+    assert entered == []
+    with torch.autograd.profiler.emit_nvtx():
+        pipeline.encode_device_wordsum(px, px.shape[0])
+    torch.cuda.synchronize()
+    assert entered == ["qoi.encode", "qoi.encode.stage_chunks",
+                       "qoi.encode.compact"]
