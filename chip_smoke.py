@@ -6,8 +6,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from qoi_tpu_torch/csrc/ (one nvcc per source,
-in parallel), holds each of the seventeen kernels against its plain
+in parallel), holds each of the eighteen kernels against its plain
 PyTorch twin (results must be exactly equal): the six parallel ones, the
+encode's word compaction (compact_words, at the 4K mixed frame's records,
+also against the word-sum route of slide_val), the
 word-form staging of the encode main path (encode_stage_words, at the 4K
 mixed frame's bucket with the seed carry and with carries in and out,
 and at the 4K RGB photo), the pack encode's byte-plane staging
@@ -319,6 +321,7 @@ def main() -> int:
     from qoi_tpu_torch.kernels import _build
     from qoi_tpu_torch.kernels import block_maps as kbm
     from qoi_tpu_torch.kernels import blocked_scan as kbs
+    from qoi_tpu_torch.kernels import compact_words as kcw
     from qoi_tpu_torch.kernels import encode_stage as kstage
     from qoi_tpu_torch.kernels import expand as kexp
     from qoi_tpu_torch.kernels import numeric_scan as kns
@@ -452,6 +455,36 @@ def main() -> int:
         12 * val.numel(), 4 * val.numel())
     del val, aux
     phase_done("slide_val vs twin")
+
+    # A': the same frame's records through the compaction kernel, against
+    # its twin and against the word-sum route it replaced (the events,
+    # slide_val and the windowed add, on the card)
+    ch = pipeline.encode_stage_chunks(px4_of(mixed[0], desc4), n)
+    cap = npc * 6
+
+    def wordsum_route():
+        ev = compact.wordsum_events(ch.lo, ch.hi, ch.lens, 20480)
+        val = kslide.slide_val(to_i32(ev.val), ev.aux.to(torch.int32))
+        return compact._wordsum_assemble(val, ev.wbase, ev.total, ev.v_all,
+                                         cap)
+
+    got, tot = kcw.compact_words(ch.lo, ch.hi, ch.lens, cap)
+    want, tot_w = kcw.compact_words_plain(ch.lo, ch.hi, ch.lens, cap)
+    err = compare("compact_words", got, want)
+    compare("compact_words against the word-sum route", got,
+            wordsum_route()[0])
+    check(int(tot) == int(tot_w), "compact_words: total")
+    log(f"compact_words: {n} records, {int(tot)} stream bytes; the "
+        f"word-sum route on the card {cuda_ms(wordsum_route, 5):.4f} ms")
+    row("compact_words", "compact_words.cu",
+        "qoi_tpu/ops/compact.py:152 (with qoi_tpu/kernels/slide.py:148)",
+        err, cuda_ms(lambda: kcw.compact_words(ch.lo, ch.hi, ch.lens, cap),
+                     20),
+        cuda_ms(lambda: kcw.compact_words_plain(ch.lo, ch.hi, ch.lens, cap),
+                3),
+        12 * npc + cap + int(tot), 10 * int(tot))
+    del ch, got, want
+    phase_done("compact_words vs twin")
 
     def round1_planes(data, clen):
         """Pass 1's position-major (meta, d32, lit32) planes of a padded
@@ -1256,10 +1289,10 @@ def main() -> int:
             nb = desc.num_pixels
             dts = []
             for _ in range(2):   # the first call also pins its host tiles
-                k0 = _build.launches["slide_val"]
+                k0 = _build.launches["compact_words"]
                 got, dt, peak = timed_peak(
                     lambda: qoi_tpu_torch.encode(frame, device=dev))
-                tiles = _build.launches["slide_val"] - k0
+                tiles = _build.launches["compact_words"] - k0
                 check(got == stream, f"streamed encode {label}")
                 dts.append(dt)
             log(f"streamed encode {W8}x{H8} {label} via qoi_tpu_torch."
@@ -1424,7 +1457,7 @@ def main() -> int:
         log(f"bench.main 1 --synthetic small --nopng --onlytotals --json "
             f"--device cuda: rc 0, {ms:.3f} ms")
 
-    counted("main-path", ("encode_stage_words", "slide_val", "expand_px",
+    counted("main-path", ("encode_stage_words", "compact_words", "expand_px",
                           "block_maps", "fsm_starts", "initial_w_scan",
                           "anch_scan"), main_path)
     counted("pack-encode", ("encode_stage_planes", "place_words"),
@@ -1432,7 +1465,7 @@ def main() -> int:
     counted("staging", ("encode_stage", "place_words"), staging_path)
     counted("dense-decode", ("slide_val2", "block_maps", "expand_px",
                              "fsm_starts", "initial_w_scan"), dense_path)
-    counted("streamed", ("encode_stage_words", "slide_val", "block_maps",
+    counted("streamed", ("encode_stage_words", "compact_words", "block_maps",
                          "expand_px", "decode_scan", "encode_scan",
                          "fsm_starts", "initial_w_scan"), streamed_path)
     def cross_check_path():
@@ -1562,7 +1595,7 @@ def main() -> int:
             "to the oracle's pixels")
         return max(cc_peaks)
 
-    counted("user-surfaces", ("encode_stage_words", "slide_val",
+    counted("user-surfaces", ("encode_stage_words", "compact_words",
                               "block_maps", "expand_px", "encode_scan",
                               "decode_scan"), surfaces_path)
     tmp_ctx.cleanup()
@@ -1629,7 +1662,7 @@ def main() -> int:
         return max(x["peak_gib"] for x in res), launches
 
     try:
-        counted("sequence-parallel", ("encode_stage_words", "slide_val",
+        counted("sequence-parallel", ("encode_stage_words", "compact_words",
                                       "fsm_scan"), seq_parallel_path)
     finally:
         seq_pool.close()
@@ -1782,7 +1815,8 @@ def main() -> int:
             f"by family {fuzz_counts}")
         log(f"conformance path: {time.perf_counter() - t_path:.1f} s wall")
 
-    counted("conformance", ("encode_stage_words", "slide_val", "slide_val2",
+    counted("conformance", ("encode_stage_words", "compact_words",
+                            "slide_val2",
                             "expand_px", "block_maps", "place_words",
                             "encode_stage", "decode_scan", "encode_scan"),
             conformance_path)
@@ -1841,11 +1875,14 @@ def main() -> int:
         log(f"measurement path: {time.perf_counter() - t_path:.1f} s wall")
 
     counted("measurement", ("encode_stage_words", "numeric_scan",
-                            "slide_val", "block_maps", "expand_px"),
+                            "compact_words", "block_maps", "expand_px"),
             measurement_path)
     log(f"launches over the ten counted runs: {counts_total}")
     for name in kernels:
-        check(counts_total[name] > 0, f"kernel {name} never launched")
+        # slide_val, the Pallas slide's counterpart, is off every path
+        # since the encode's compaction runs compact_words
+        check(counts_total[name] > 0 or name == "slide_val",
+              f"kernel {name} never launched")
         kernels[name]["launches"] = counts_total[name]
 
     log(f"smoke total: {time.perf_counter() - t_start:.1f} s wall (the "

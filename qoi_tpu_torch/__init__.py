@@ -6,9 +6,10 @@ name: format, config, oracle and utils/testimages (the numpy leaves),
 the user surfaces (io, cli, corpus, bench, utils/profiling), ops/
 (scans, table, link, compact, fsm), models/ (pipeline, decode_v3,
 decode_pipeline, decode_v2, streamed, scan_codec, batch), kernels/
-(slide, expand, block_maps, pack, encode_stage, scan_codec,
-numeric_scan: the Python wrappers and their plain PyTorch twins) and csrc/ (the CUDA sources, built with nvcc at first use
-into build/).
+(slide, expand, block_maps, pack, encode_stage, compact_words,
+scan_codec, numeric_scan: the Python wrappers and their plain PyTorch
+twins) and csrc/ (the CUDA sources, built with nvcc at first use into
+build/).
 
 Every public function takes its tensors on an explicit device. The facade
 below and every user surface take `device=`, default to "cuda" and raise

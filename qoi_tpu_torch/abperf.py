@@ -27,8 +27,8 @@ Subcommands and variants (`--only a,b` runs the variants whose names
 contain one of the substrings):
 - encode, --frames `testimages.mixed` 4K frames: `wordsum10240`,
   `wordsum20480`, `wordsum40960` (`pipeline.encode_device_wordsum` at that
-  many pixels a compaction row: the staging kernel, then the
-  compaction), `plainstage20480` (the same with the staging
+  many pixels a compaction row of the CPU route: the staging kernel, then
+  the compaction kernel, the same on the card for every row width), `plainstage20480` (the same with the staging
   in plain torch, `pipeline.stage_chunks_plain`), `pack`
   (`encode_device_pack`),
   `batch` (`models/batch.encode_batch`) and `facade` (the

@@ -1,5 +1,5 @@
-"""Where the time of the slide_val, staging and one-pass scan kernels
-goes, on the card.
+"""Where the time of the slide_val, compaction, staging and one-pass scan
+kernels goes, on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -14,6 +14,10 @@ memsets' device time a call apart, and each kernel's mean device time a
 launch. `--only` picks among:
   slide    the slide planes of a 3840x2160 mixed RGBA frame's word-sum
            events (and the output allocation alone);
+  compact  the word compaction kernel (compact_words) on that frame's
+           and a 4K RGB photo frame's records, and the word-sum route it
+           replaced on the card (the events, slide_val, the windowed
+           add);
   fused, words, planes
            the staging of that frame and of a 4K RGB photo frame;
   resolve  v2's resolve_scan on the round-0 leaves of the 4K photo and
@@ -21,7 +25,7 @@ launch. `--only` picks among:
   scans    the five other entries of csrc/blocked_scan.cu (fsm_scan,
            fsm_starts, initial_scan, initial_w_scan, anch_scan) at the 4K
            mixed stream's shapes.
-`--sass` prints, for each staging and resolve kernel of the built
+`--sass` prints, for each staging, resolve and compaction kernel of the built
 library, its SASS instruction count (`cuobjdump -sass`) in sections cut
 at each block barrier (BAR), so that a phase's instructions can be told
 from the set-up's and the look-back's. Run on an older checkout (as an A/B
@@ -46,10 +50,11 @@ W, H = 3840, 2160
 REPS = 20
 STAGES = {"fused": "encode_stage_pallas", "words": "encode_stage_words",
           "planes": "encode_stage_planes"}
-ONLY = "slide,fused,words,planes,resolve,scans"
+ONLY = "slide,compact,fused,words,planes,resolve,scans"
 #: SASS listed by --sass: the staging kernels, the resolve scan's kernel
-#: (and, in an older checkout, the one-pass template's resolve entry)
-SASS_KEYS = ("stage", "resolve", "one_pass_kernelILi5E")
+#: (and, in an older checkout, the one-pass template's resolve entry), the
+#: compaction kernel
+SASS_KEYS = ("stage", "resolve", "one_pass_kernelILi5E", "compact_kernel")
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -119,8 +124,8 @@ def _cuobjdump() -> str:
 
 
 def sass_sections(so) -> dict:
-    """{kernel name: [instructions of each section]} for the staging and
-    resolve kernels of the library, by `cuobjdump -sass` (see
+    """{kernel name: [instructions of each section]} for the staging,
+    resolve and compaction kernels of the library, by `cuobjdump -sass` (see
     count_sections)."""
     return count_sections(subprocess.run(
         [_cuobjdump(), "-sass", str(so)], capture_output=True, text=True,
@@ -213,6 +218,32 @@ def profile_scans(dev) -> None:
         report(f"{name} wrapper, 4K mixed stream, M={m}", fn)
 
 
+def profile_compact(ch, capacity: int, label: str) -> None:
+    """The compaction of one frame's staged records: the kernel (skipped
+    in a checkout without it) and the word-sum route on the card."""
+    from ._bits import to_i32
+    from .kernels import slide as kslide
+    from .ops import compact
+
+    def wordsum_route():
+        ev = compact.wordsum_events(ch.lo, ch.hi, ch.lens, 20480)
+        val = kslide.slide_val(to_i32(ev.val), ev.aux.to(torch.int32))
+        return compact._wordsum_assemble(val, ev.wbase, ev.total, ev.v_all,
+                                         capacity)
+
+    total = int(ch.lens.to(torch.int64).sum())
+    print(f"compaction of {ch.lens.shape[0]} records, {total} stream bytes "
+          f"({label})", flush=True)
+    try:
+        from .kernels import compact_words as kcw
+    except ImportError:
+        kcw = None
+    if kcw is not None:
+        report(f"compact_words wrapper, {label}",
+               lambda: kcw.compact_words(ch.lo, ch.hi, ch.lens, capacity))
+    report(f"word-sum route, {label}", wordsum_route)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kernel_profile")
     ap.add_argument("--only", default=ONLY)
@@ -250,7 +281,7 @@ def main(argv=None) -> int:
         profile_resolve(dev)
     if "scans" in only:
         profile_scans(dev)
-    if not only & {"slide", "fused", "words", "planes"}:
+    if not only & {"slide", "compact", "fused", "words", "planes"}:
         return 0
 
     n = W * H
@@ -273,6 +304,10 @@ def main(argv=None) -> int:
               f"{cuda_ms(lambda: torch.zeros_like(val)):.4f} ms", flush=True)
         del val, aux
     photo = px4_of(testimages.photo(W, H, 3, seed=3), 3)
+    if "compact" in only:
+        for label, px4 in (("mixed RGBA", mixed), ("photo RGB", photo)):
+            profile_compact(pipeline.encode_stage_chunks(px4, n), npc * 6,
+                            label)
     for label, px4 in (("mixed RGBA", mixed), ("photo RGB", photo)):
         for form, name in STAGES.items():
             stage = getattr(kstage, name, None)

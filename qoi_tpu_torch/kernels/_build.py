@@ -61,6 +61,8 @@ _SIGNATURES = {
     "qoi_initial_w": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     "qoi_anch_scan": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     "qoi_resolve_scan": [_P, _P, _P, _P, ctypes.c_longlong, _P],
+    "qoi_compact_words": [_P, _P, _P, ctypes.c_longlong, _P,
+                          ctypes.c_longlong, _P, _P, _P],
 }
 
 #: launches per kernel since the last `reset_launches()`; each wrapper
@@ -74,7 +76,7 @@ launches: Dict[str, int] = {"slide_val": 0, "expand_px": 0,
                             "numeric_scan": 0, "fsm_scan": 0,
                             "fsm_starts": 0, "initial_scan": 0,
                             "initial_w_scan": 0, "anch_scan": 0,
-                            "resolve_scan": 0}
+                            "resolve_scan": 0, "compact_words": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -45,7 +45,7 @@ def encode_batch(images: Sequence[np.ndarray],
     """Encode a batch of images (each (h, w, 3|4) uint8) on `device`;
     returns one reference-compatible stream per image, byte-identical to
     encoding each alone. A group uploads in one copy; each row runs
-    `pipeline.encode_device_wordsum` (the slide_val kernel on the card);
+    `pipeline.encode_device_wordsum` (the compact_words kernel on the card);
     one fetch brings the group's totals, then each stream's words."""
     from .. import _device
 

@@ -305,9 +305,9 @@ def stage_chunks_plain(
 
 def encode_device_wordsum(px4: torch.Tensor, n_valid, seg: int = 20480):
     """Device-resident encode: word-form staging + the word-sum
-    compaction, whose slide is the CUDA kernel on the card. seg=20480
-    pixels per compaction row, as in the JAX package. Ragged n pads with
-    l=0 records. Returns (words (6*N//4,) int32 -- the stream bytes
+    compaction, one CUDA kernel on the card (kernels/compact_words.py).
+    seg=20480 pixels per compaction row of the CPU route, as in the JAX
+    package; the card's words do not depend on it. Returns (words (6*N//4,) int32 -- the stream bytes
     little-endian -- and total 0-d int64). The span `qoi.encode` is the
     request: the staging's and the compaction's spans nest in it."""
     with annotate("qoi.encode"):

@@ -9,7 +9,8 @@ byte-identical (encode) or pixel-identical (decode) to the reference.
 
 Encode chains the four encoder carries (`pipeline.EncoderCarry`: boundary
 pixel, pending run, 64-slot table) through `encode_stage_chunks` and
-compacts each tile with the word-sum compaction (the slide_val kernel).
+compacts each tile with the word-sum compaction (the compact_words
+kernel).
 Decode ends each byte tile at a chunk boundary, runs the fixpoint decoder
 (`decode_v3._decode_core`) from the previous tile's exit state, and
 expands the tile's pixels with its entry px as the seed; a tile that does

@@ -4,7 +4,9 @@ contiguously at the exclusive prefix sum of their lengths.
 
   * `compact_words6_wordsum` -- the main path's word-sum compaction,
     from packed record words; `compact_bytes6_wordsum` is the same from
-    (6, N) byte planes. Both slide their events with kernels/slide.py.
+    (6, N) byte planes. On the CPU both slide their events with
+    kernels/slide.py's twin; on the card both run one kernel,
+    kernels/compact_words.py, which writes the same words directly.
   * `compact_bytes`, `compact_bytes6` -- one stable sort by target
     offset, and its two-tier form (segment sorts + one windowed add)
     over (K, N) byte planes: the encode of `pipeline.encode_device_split`.
@@ -20,11 +22,10 @@ them.
 Every output word of the word-sum compaction is the difference of two
 running sums of per-record word contributions, and every word has
 exactly one "boundary event" (the record owning its last byte) that
-defines its running sum. Events are
-built two slots per pixel in (nseg, 2*seg) rows, slid to their dense
-within-row positions (kernels/slide.py: the CUDA kernel on the card, its
-plain twin on the CPU), placed at global word offsets with one windowed
-add, and differenced. See the JAX module for the derivation.
+defines its running sum. Events are built two slots per pixel in
+(nseg, 2*seg) rows, slid to their dense within-row positions
+(kernels/slide.py's twin), placed at global word offsets with one
+windowed add, and differenced. See the JAX module for the derivation.
 
 u32 values are int64 in [0, 2**32) here (see _bits); the slide and the
 output words are int32 bit patterns.
@@ -36,6 +37,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .._bits import M32, to_i32, u32
+from ..kernels.compact_words import compact_words
 from ..kernels.slide import slide_val
 from ..utils.profiling import annotate
 from .scans import exclusive_cumsum
@@ -81,10 +83,18 @@ def compact_words6_wordsum(
     window starts clamped, and the final-partial-word patch clamps into
     capacity; a capacity below the true total corrupts bytes inside
     capacity instead of truncating. Every caller bounds capacity at the
-    format's worst case (6 B/px of per-pixel staging)."""
+    format's worst case (6 B/px of per-pixel staging).
+
+    On CUDA tensors one kernel writes the same words
+    (kernels/compact_words.py: offsets by a look-back over tiles, each
+    tile's words straight to the output). The words depend on lo, hi,
+    lens and capacity alone, so the card ignores `seg`, which shapes the
+    CPU route's event rows only."""
     if capacity % 4:
         raise ValueError(f"capacity {capacity} is not a multiple of 4")
     with annotate("qoi.encode.compact"):
+        if lens.device.type != "cpu":
+            return compact_words(lo, hi, lens, capacity)
         ev = wordsum_events(lo, hi, lens, seg)
         val = slide_val(to_i32(ev.val), ev.aux.to(torch.int32))
         return _wordsum_assemble(val, ev.wbase, ev.total, ev.v_all, capacity)
@@ -197,11 +207,10 @@ def compact_bytes6_wordsum(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`compact_words6_wordsum` from (6, N) uint8 byte planes: the
     records' bytes packed to (lo, hi) words (kernels/pack._record_words),
-    then the same events, slide and assembly. Returns (buffer (capacity,)
-    uint8, or with `words_out` the (capacity//4,) int32 words, and total).
-    The JAX function makes a ragged N one segment; the port pads it with
-    l=0 records (`wordsum_events`), which gives the same bytes and keeps
-    the slide rows within the kernel's width."""
+    then the same compaction. Returns (buffer (capacity,) uint8, or with
+    `words_out` the (capacity//4,) int32 words, and total). The JAX
+    function makes a ragged N one segment; the port's CPU route pads it
+    with l=0 records (`wordsum_events`), which gives the same bytes."""
     from ..kernels.pack import _record_words
 
     lo, hl = _record_words(staging6, lens)

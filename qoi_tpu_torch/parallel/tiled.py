@@ -18,8 +18,8 @@ included). Every rank then composes the S summaries (a few Python steps
 on the host: S is the rank count). Phase B re-runs the data-parallel
 stages with the exact incoming state (models/pipeline
 `encode_stage_chunks`) and compacts the tile with the main path's
-word-sum compaction (ops/compact `compact_words6_wordsum`, whose slide is
-the slide_val kernel on the card). A second all_gather exchanges the byte
+word-sum compaction (ops/compact `compact_words6_wordsum`, the
+compact_words kernel on the card). A second all_gather exchanges the byte
 totals, which exist only after phase B. The stream is byte-identical to
 the reference encoder's. The JAX package returns the tiles' bytes to its
 one controller; here every rank gathers them (a third all_gather) and

@@ -18,6 +18,7 @@ from qoi_tpu_torch._bits import to_i32
 from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as kbm
 from qoi_tpu_torch.kernels import blocked_scan as kbs
+from qoi_tpu_torch.kernels import compact_words as kcw
 from qoi_tpu_torch.kernels import encode_stage as kstage
 from qoi_tpu_torch.kernels import expand as kexp
 from qoi_tpu_torch.kernels import numeric_scan as kns
@@ -28,6 +29,8 @@ from qoi_tpu_torch.models import (decode_pipeline, decode_v2, decode_v3,
                                   pipeline, scan_codec)
 from qoi_tpu_torch.ops import compact
 from qoi_tpu_torch.utils import testimages
+from compact_cases import CASES as COMPACT_CASES
+from compact_cases import case as compact_case
 from numeric_scan_cases import (all_index_planes, deep_chain_planes,
                                 random_planes)
 from scan_cases import (DECODE_CASES, ENCODE_CASES, decode_case,
@@ -85,8 +88,8 @@ def test_slide_kernel_matches_twin(dev, n, kind, seg):
 @pytest.mark.parametrize("n,kind", [
     (20480 * 2 + 5, "mixed"), (4096, "dense6"), (64, "empty")])
 def test_compact_on_card_matches_cpu(dev, n, kind):
-    """Words and total (incl. total == 0) through the slide kernel equal
-    the CPU path through the twin."""
+    """Words and total (incl. total == 0) through the compaction kernel
+    equal the CPU path through the slide's twin."""
     recs = _records(n, kind, 7 * n)
     cap = -(-n * 6 // 4) * 4
     wc, tc = compact.compact_words6_wordsum(*recs, cap, seg=20480)
@@ -94,6 +97,59 @@ def test_compact_on_card_matches_cpu(dev, n, kind):
                                             cap, seg=20480)
     assert int(tg) == int(tc)
     _same(wg, wc)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", sorted(COMPACT_CASES))
+def test_compact_words_kernel_matches_cpu(dev, name, dtype):
+    """compact_words6_wordsum on the card, one compact_words launch and no
+    slide, equals its CPU route over the whole (capacity // 4,) buffer, on
+    int32 bit patterns (the staging kernel's form) and int64 u32 values,
+    at the kernel's tile edges (tests/compact_cases.py)."""
+    lo, hi, lens, cap = compact_case(name)
+    wc, tc = compact.compact_words6_wordsum(lo, hi, lens, cap)
+    if dtype == torch.int32:
+        lo = to_i32(lo)
+    _build.reset_launches()
+    wg, tg = compact.compact_words6_wordsum(
+        *(t.to(dtype).to(dev) for t in (lo, hi, lens)), cap)
+    torch.cuda.synchronize()
+    assert _build.launches["compact_words"] == 1
+    assert _build.launches["slide_val"] == 0
+    assert tg.device == wg.device == dev and tg.dtype == torch.int64
+    assert int(tg) == int(tc)
+    _same(wg, wc)
+
+
+def test_compact_words_4k_frame_one_launch(dev):
+    """The 4K mixed frame through encode_device_wordsum: one compact_words
+    launch and no slide_val launch an encode, the words equal the CPU
+    route's on the same records and the oracle's stream, and 100 launches
+    give the first one's words bit for bit."""
+    w, h = 3840, 2160
+    img = testimages.mixed(w, h, 4, seed=3)
+    want = oracle.encode(img, fmt.StreamDesc(w, h, 4))
+    n = w * h
+    px4 = torch.from_numpy(img.reshape(-1, 4).copy()).to(dev)
+    _build.reset_launches()
+    words, tot = pipeline.encode_device_wordsum(px4, n)
+    torch.cuda.synchronize()
+    assert _build.launches["compact_words"] == 1
+    assert _build.launches["slide_val"] == 0
+    got = (fmt.pack_header(fmt.StreamDesc(w, h, 4))
+           + words.view(torch.uint8)[:int(tot)].cpu().numpy().tobytes()
+           + fmt.TRAILER)
+    assert got == want
+    ch = pipeline.encode_stage_chunks(px4, n)
+    wc, tc = compact.compact_words6_wordsum(
+        ch.lo.cpu(), ch.hi.cpu(), ch.lens.cpu(), n * 6, seg=20480)
+    assert int(tc) == int(tot)
+    _same(words, wc)
+    runs = [kcw.compact_words(ch.lo, ch.hi, ch.lens, n * 6)
+            for _ in range(100)]
+    torch.cuda.synchronize()
+    for r, t in runs:
+        assert torch.equal(r, words) and int(t) == int(tot)
 
 
 def _expand_records(m, seed, max_run=62, first=0):
@@ -932,6 +988,7 @@ def test_wrappers_count_launches(dev):
     _build.reset_launches()
     z = torch.zeros((2, 8), dtype=torch.int32, device=dev)
     kslide.slide_val(z, z)
+    kcw.compact_words(z[0], z[0], z[0], 48)
     kexp.expand_px(z[0], z[0], 4)
     kbm.block_maps(z, z, z)
     kslide.slide_val2(z, z, z)
@@ -965,7 +1022,7 @@ def test_wrappers_count_launches(dev):
                                "numeric_scan": 1, "fsm_scan": 1,
                                "fsm_starts": 1, "initial_scan": 1,
                                "initial_w_scan": 1, "anch_scan": 1,
-                               "resolve_scan": 1}
+                               "resolve_scan": 1, "compact_words": 1}
 
 
 # ---- blocked_scan: the decode's three one-pass scans ---------------------
@@ -1237,7 +1294,7 @@ def test_codec_on_card_matches_oracle(dev, ch):
 def test_batch_on_card_4k(dev):
     """encode_batch / decode_batch on a batch of 4K frames: the oracle's
     bytes and the sources' pixels, the adversarial stream through the
-    ladder and a corrupted one as an error, through the slide_val,
+    ladder and a corrupted one as an error, through the compact_words,
     block_maps and expand kernels."""
     from qoi_tpu_torch.models import batch
 
@@ -1248,7 +1305,7 @@ def test_batch_on_card_4k(dev):
             for f in frames]
     _build.reset_launches()
     assert batch.encode_batch(frames, device=dev) == want
-    assert _build.launches["slide_val"] >= len(frames)
+    assert _build.launches["compact_words"] >= len(frames)
     adv = (fmt.pack_header(fmt.StreamDesc(640, 480, 4))
            + b"\x05" * (640 * 480) + fmt.TRAILER)
     bad = b"qoiX" + want[0][4:]
@@ -1263,7 +1320,7 @@ def test_batch_on_card_4k(dev):
 
 
 @pytest.mark.parametrize("engine,needs", [
-    ("tpu", ("slide_val", "block_maps", "expand_px")),
+    ("tpu", ("compact_words", "block_maps", "expand_px")),
     ("scan", ("encode_scan", "decode_scan"))])
 def test_cli_on_card(dev, tmp_path, engine, needs):
     """The converter CLI, .qoi -> .qoi verified against the oracle, on the

@@ -24,6 +24,7 @@ from qoi_tpu_torch import format as tfmt
 from qoi_tpu_torch import oracle as toracle
 from qoi_tpu_torch.kernels import _build
 from qoi_tpu_torch.kernels import block_maps as tbm
+from qoi_tpu_torch.kernels import compact_words as tcw
 from qoi_tpu_torch.kernels import encode_stage as tstage
 from qoi_tpu_torch.kernels import expand as texpand
 from qoi_tpu_torch.kernels import numeric_scan as tns
@@ -283,7 +284,7 @@ def test_make_mesh_checks_the_world_size(one_rank_group):
                                     "slide_val2", "place_words",
                                     "encode_stage", "encode_stage_words",
                                     "encode_scan", "decode_scan",
-                                    "numeric_scan"])
+                                    "numeric_scan", "compact_words"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
     """A tensor that is not on the CPU goes to the kernel or raises: here
     a 'meta' tensor must raise instead of taking the plain twin."""
@@ -308,6 +309,8 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(kernel):
         elif kernel == "numeric_scan":
             tns.numeric_scan(z, z, z, torch.zeros((65, 8), dtype=torch.int32,
                                                   device="meta"))
+        elif kernel == "compact_words":
+            tcw.compact_words(z[0], z[0], z[0], 48)
         elif kernel == "encode_stage_words":
             tstage.encode_stage_words(
                 torch.zeros((1000, 4), dtype=torch.uint8, device="meta"), 9)
@@ -350,7 +353,7 @@ def test_launch_counts_start_at_zero_and_reset():
                                     "numeric_scan",
                                     "fsm_scan", "fsm_starts", "initial_scan",
                                     "initial_w_scan", "anch_scan",
-                                    "resolve_scan"}
+                                    "resolve_scan", "compact_words"}
     assert all(v == 0 for v in _build.launches.values())
 
 

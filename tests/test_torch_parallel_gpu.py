@@ -1,6 +1,6 @@
 """The sequence-parallel codec on the card: a 4K frame encoded and decoded
 by S = 4 gloo ranks that share cuda:0 (a machine with one card), against
-the C++ oracle, with the staging and slide_val kernels launched by every
+the C++ oracle, with the staging and compact_words kernels launched by every
 rank; and the byte-plane word-sum compaction on the card against its CPU
 result.
 
@@ -39,7 +39,7 @@ def dev():
 def test_tiled_4k_on_card(dev, kind):
     """Every rank returns the oracle's stream and the source pixels, the
     sharded fixpoint converges on every shard, and each rank launched
-    slide_val in its tile's compaction."""
+    compact_words in its tile's compaction."""
     img = (testimages.mixed(3840, 2160, 4, seed=3) if kind == "mixed"
            else testimages.photo(3840, 2160, 3, seed=3))
     h, w, ch = img.shape
@@ -49,7 +49,7 @@ def test_tiled_4k_on_card(dev, kind):
     for r, (same_stream, same_px, conv, launches, stats) in enumerate(res):
         assert same_stream and same_px, f"rank {r}"
         assert conv, f"rank {r}: the sharded fixpoint did not converge"
-        assert launches["slide_val"] > 0, f"rank {r}: {launches}"
+        assert launches["compact_words"] > 0, f"rank {r}: {launches}"
         assert launches["encode_stage_words"] > 0, f"rank {r}: {launches}"
 
 
@@ -65,10 +65,10 @@ def test_compact_bytes6_wordsum_on_card_matches_cpu(dev, n, kind):
                                        rng.integers(1, 7, n), 0)}[kind]()
     cap = -(-n * 6 // 4) * 4
     st, ln = torch.from_numpy(staging), torch.from_numpy(lens)
-    k0 = _build.launches["slide_val"]
+    k0 = _build.launches["compact_words"]
     got, tg = compact.compact_bytes6_wordsum(st.to(dev), ln.to(dev), cap)
     torch.cuda.synchronize()
-    assert _build.launches["slide_val"] == k0 + 1
+    assert _build.launches["compact_words"] == k0 + 1
     want, tc = compact.compact_bytes6_wordsum(st, ln, cap)
     assert int(tg) == int(tc) == lens.sum()
     t = int(tc)
